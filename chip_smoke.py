@@ -1,0 +1,387 @@
+"""Smoke run of the PyTorch/CUDA port (largesteps_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``largesteps_torch/csrc``, holds
+each against its plain PyTorch version at the main path's shapes, holds a
+2-view render on the card against the same render on the CPU, and runs the
+main path (the ``bench.py:bench_step`` scene: icosphere-4 fitted to gourd-4,
+13 views at 256², shaded, boost 3, λ = 19, l2 loss, AdamUniform) for 20
+steps through the port's ``optimize_shape``.  Prints one JSON line per
+phase, then the kernel table, the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without the
+``ok`` line, if there is no CUDA device or any phase fails.  Imports neither
+jax nor largesteps_tpu.
+"""
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+import traceback
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+
+SEED = 0
+STEPS = 20
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# non-tensor FLOP/s; the card's power limit is printed beside every number
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# float ops counted per unit of work (from the arithmetic in csrc/*.cu):
+FLOPS_Z_TEST = 22        # raster_fwd: one slot tested at one pixel
+FLOPS_FINISH = 20        # raster_fwd: interpolation at a covered pixel
+FLOPS_RBWD = 100         # raster_bwd: 18 gradient fields at a covered pixel
+FLOPS_PAIR = 75          # antialias: the three-edge crossing of one pair
+FLOPS_PAIR_BWD = 60      # aa_bwd: endpoint gradients of one pair
+FLOPS_BLEND = 6          # antialias: blend of one channel of one pair
+# record columns each kernel must read (render/pipeline.py column maps)
+COLS_ZLOOP = 15          # raster_fwd: cols 0-14 of every live slot
+COLS_FINISH = 9          # raster_fwd: colour cols 16-24 of each winning slot
+COLS_RBWD = 22           # raster_bwd: cols 0-21 of each slot owning a pixel
+COLS_SEARCH = 1          # antialias: the face id of every live slot
+COLS_EDGE = 9            # antialias: sx sy ×3 and opp ×3 of each pair owner
+COLS_RBWD_OUT = 18       # raster_bwd: the per-slot sums of every live slot
+COLS_AA_OUT = 6          # aa_bwd: the per-slot endpoint sums
+F32 = 4
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else ""
+
+
+def time_ms(fn, reps, warm=2):
+    """Mean milliseconds of ``fn`` over ``reps`` calls, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def max_abs(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def holds(name, got, want):
+    """(passed, max-abs errors, max|want|, tolerance) of a kernel's outputs
+    against its plain version's."""
+    errs = [max_abs(a, b) for a, b in zip(got, want)]
+    scales = [float(b.abs().max()) for b in want]
+    if name == "raster_fwd":
+        # ids exact; every plane within 1e-5 (built with -fmad=false, the
+        # kernel rounds as the plain version does)
+        tol = "fid and slot exact, planes 1e-5 abs"
+        passed = errs[3] == 0.0 and errs[4] == 0.0 and max(errs) <= 1e-5
+    elif name == "aa_fwd":
+        tol = "1e-5 abs"
+        passed = errs[0] <= 1e-5
+    elif name == "raster_bwd":
+        # per-slot sums by atomics: the summation order differs
+        tol = "1e-4 x max|plain|"
+        passed = errs[0] <= 1e-4 * scales[0]
+    else:
+        # d_color is of the order of the loss cotangent (about 1e-7 here),
+        # so it is held relative to its own size
+        tol = "d_color 1e-5 x max|plain|; per-slot sums 1e-4 x max|plain|"
+        passed = errs[0] <= 1e-5 * scales[0] and errs[1] <= 1e-4 * scales[1]
+    return passed, errs, scales, tol
+
+
+def work(rbb, counts, fid, z, slot, res):
+    """What this run's data needs the kernels to touch: live slots, slots
+    that win a pixel, distinct antialias pair owners (each per tile), the
+    z-tests of every live slot over the pixels of its unexpanded bbox inside
+    its tile, covered pixels and pairs whose ids differ."""
+    from largesteps_torch.render import kernels as K
+    C, TY, TX, cap, _ = rbb.shape
+    H, W = res
+    dev = rbb.device
+    live = torch.arange(cap, device=dev) < counts[..., None]
+    tile = torch.arange(C * TY * TX, device=dev).reshape(C, TY, TX, 1)
+    st = K._to_tiles(slot).long()
+    winners = torch.unique((tile * cap + st)[st >= 0]).numel()
+    owners, pairs = [], 0
+    for nb in (K._shift_left, K._shift_up):
+        own, _, dif = K._aa_common(fid, z, nb(fid), nb(z))
+        act = K._to_tiles(dif & (own > 0))
+        owners.append((tile * (2 ** 32) + K._to_tiles(own).long())[act])
+        pairs += int(act.sum())
+    owners = torch.unique(torch.cat(owners)).numel()
+
+    def extent(ndc, n_pix, start, size):
+        # pixel centres inside [min, max] of the corners, within the tile
+        lo = torch.ceil((ndc.amin(-1) + 1.0) * (n_pix / 2.0) - 0.5) - start
+        hi = torch.floor((ndc.amax(-1) + 1.0) * (n_pix / 2.0) - 0.5) - start
+        return (hi.clamp(max=size - 1) - lo.clamp(min=0) + 1).clamp(min=0)
+
+    ty0 = (torch.arange(TY, device=dev) * K.TILE_H).float()[None, :, None,
+                                                              None]
+    tx0 = (torch.arange(TX, device=dev) * K.TILE_W).float()[None, None, :,
+                                                              None]
+    rows = extent(rbb[..., [10, 12, 14]], H, ty0, K.TILE_H)
+    cols = extent(rbb[..., [9, 11, 13]], W, tx0, K.TILE_W)
+    return {"live": int(live.sum()), "winners": winners, "owners": owners,
+            "z_tests": float((rows * cols * live).sum()),
+            "covered": float((fid > 0).sum()), "pairs": float(pairs),
+            "pixels": float(fid.numel())}
+
+
+def phase_card():
+    from largesteps_torch import _cuda
+    name = torch.cuda.get_device_name(0)
+    line = smi()
+    shutil.rmtree(_cuda._BUILD, ignore_errors=True)   # build from sources
+    t0 = time.perf_counter()
+    built = _cuda.build_all()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "card", "name": name, "count": torch.cuda.device_count(),
+          "nvidia_smi": line, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+          "tf32_cudnn": torch.backends.cudnn.allow_tf32,
+          "build_s": build_s, "built": sorted(built)})
+    return name, line
+
+
+def phase_kernels(card):
+    """Each kernel against its plain version on one forward+backward's real
+    inputs at the main path's shapes."""
+    from largesteps_torch.render import kernels as K
+    from largesteps_torch.render.camera import project
+    from largesteps_torch.render.pipeline import setup_and_bin
+    from largesteps_torch.render.renderer import Renderer, Topology
+    from largesteps_torch.render.sh import sh_eval
+    from largesteps_torch.profiling import main_path_scene
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    dev = torch.device("cuda")
+    scene = main_path_scene(seed=SEED)
+    r = Renderer(scene, shading=True, boost=3, device=dev)
+    f = scene["mesh-source"]["faces"]
+    topo = Topology(f)
+    v = torch.as_tensor(scene["mesh-source"]["vertices"], device=dev)
+    occ = r.check_overflow(v, topo)
+    cap = r.bin_cap
+    vt = torch.as_tensor(scene["mesh-target"]["vertices"], device=dev)
+    ft = scene["mesh-target"]["faces"]
+    with torch.no_grad():
+        ref = r.render(vt, compute_vertex_normals(
+            vt, ft, compute_face_normals(vt, ft)), Topology(ft))
+        n = compute_vertex_normals(v, f, compute_face_normals(v, f))
+        faces = torch.as_tensor(f.astype(np.int64), device=dev)
+        opp = torch.as_tensor(topo.opp.astype(np.int64), device=dev)
+        v_ndc = project(v, r.mvps)
+        attrs = sh_eval(r.sh_M, n) / np.pi
+        rfb, rbb, bins, counts = setup_and_bin(v_ndc, faces, attrs, opp,
+                                               256, 256, cap)
+    res = r.res
+    fwd = K.raster_fwd(rfb, counts, res)
+    u, vv, z, fid, slot, c0, c1, c2 = fwd
+    cov = (fid > 0)[..., None]
+    comp = torch.where(cov, torch.cat([torch.stack([c0, c1, c2], -1),
+                                       cov.float()], -1), r.bgs).contiguous()
+    img = K.aa_fwd(rbb, counts, fid, z, comp, res)
+    d_out = (2.0 * (img - ref) / img.numel()).contiguous()
+    d_comp, _ = K.aa_bwd(rbb, counts, fid, z, comp, d_out, res)
+    d_col = torch.where(cov, d_comp[..., :3], 0.0).contiguous()
+    zeros = torch.zeros_like(fid)
+    torch.cuda.synchronize()
+
+    w = work(rbb, counts, fid, z, slot, res)
+    live, pix, D = w["live"], w["pixels"], comp.shape[-1]
+    plane = pix * F32
+    # bytes each function must move: the record columns it reads for the
+    # slots this data needs, the planes in and out, the live rows of the
+    # per-slot tables out (the layout's padding is not counted)
+    cases = [
+        ("raster_fwd", "largesteps_tpu/render/pallas_core.py:988",
+         lambda: K.raster_fwd(rfb, counts, res),
+         lambda: K.raster_fwd_plain(rfb, counts, res),
+         (live * COLS_ZLOOP + w["winners"] * COLS_FINISH) * F32
+         + nbytes(counts) + 8 * plane,
+         FLOPS_Z_TEST * w["z_tests"] + FLOPS_FINISH * w["covered"]),
+        ("aa_fwd", "largesteps_tpu/render/pallas_core.py:1635",
+         lambda: K.aa_fwd(rbb, counts, fid, z, comp, res),
+         lambda: K.aa_fwd_plain(rbb, counts, fid, z, comp, res),
+         (live * COLS_SEARCH + w["owners"] * COLS_EDGE) * F32
+         + nbytes(counts) + (2 + 2 * D) * plane,
+         (FLOPS_PAIR + FLOPS_BLEND * D) * w["pairs"]),
+        ("raster_bwd", "largesteps_tpu/render/pallas_core.py:1120",
+         lambda: K.raster_bwd(rbb, counts, slot, d_col, zeros, zeros, res),
+         lambda: K.raster_bwd_plain(rbb, counts, slot, d_col, zeros, zeros,
+                                    res),
+         (w["winners"] * COLS_RBWD + live * COLS_RBWD_OUT) * F32
+         + nbytes(counts) + 6 * plane,
+         FLOPS_RBWD * w["covered"]),
+        ("aa_bwd", "largesteps_tpu/render/pallas_core.py:1819",
+         lambda: K.aa_bwd(rbb, counts, fid, z, comp, d_out, res),
+         lambda: K.aa_bwd_plain(rbb, counts, fid, z, comp, d_out, res),
+         (live * (COLS_SEARCH + COLS_AA_OUT) + w["owners"] * COLS_EDGE) * F32
+         + nbytes(counts) + (2 + 3 * D) * plane,
+         (FLOPS_PAIR + FLOPS_PAIR_BWD + 2 * FLOPS_BLEND * D) * w["pairs"]),
+    ]
+    table, ok = {}, True
+    for name, replaces, kern, plain, nb_, ops in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        passed, errs, scales, tol = holds(name, got, want)
+        # the check must be able to fail: each output zeroed in turn
+        caught = all(not holds(name, got[:i] + (torch.zeros_like(got[i]),)
+                               + got[i + 1:], want)[0]
+                     for i in range(len(got)))
+        passed = passed and caught
+        ms = time_ms(kern, 50)
+        plain_ms = time_ms(plain, 3, warm=1)
+        t_bytes = nb_ / PEAK_BYTES * 1e3
+        t_ops = ops / PEAK_F32 * 1e3
+        table[name] = {
+            "name": name, "route": "cuda",
+            "source": f"largesteps_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
+        emit({"phase": "kernel", "name": name, "passed": passed,
+              "max_abs_err": errs, "max_rel_err": [
+                  e / s if s else 0.0 for e, s in zip(errs, scales)],
+              "tolerance": tol, "planted_errors_caught": caught,
+              "ms": ms, "plain_ms": plain_ms,
+              "bytes": nb_, "flops": ops, "bytes_ms": t_bytes,
+              "ops_ms": t_ops, "work": w, "cap": cap, "occupancy": occ,
+              "shapes": {"rec": list(rfb.shape), "planes": list(fid.shape),
+                         "color": list(comp.shape)},
+              "card": card})
+        ok = ok and passed
+    return ok, table
+
+
+def phase_render_cpu_vs_card(card):
+    """2 views at 256²: images and the gradients w.r.t. v and n, through
+    the kernels on the card and through the plain versions on the CPU."""
+    from largesteps_torch.render.renderer import Renderer, Topology
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    from largesteps_torch.profiling import main_path_scene
+    scene = main_path_scene(n_views=2, seed=SEED)
+    f = scene["mesh-source"]["faces"]
+    v0 = torch.as_tensor(scene["mesh-source"]["vertices"])
+    n0 = compute_vertex_normals(v0, f, compute_face_normals(v0, f))
+    w = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(2, 256, 256, 4)).astype(np.float32))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        r = Renderer(scene, shading=True, boost=3, device=dev)
+        topo = Topology(f)
+        v = v0.to(dev).requires_grad_(True)
+        n = n0.to(dev).requires_grad_(True)
+        img = r.render(v, n, topo)
+        (w.to(dev) * img).sum().backward()
+        out[dev] = (img.detach().cpu(), v.grad.cpu(), n.grad.cpu())
+    e_img = max_abs(out["cuda"][0], out["cpu"][0])
+    e_v = max_abs(out["cuda"][1], out["cpu"][1])
+    e_n = max_abs(out["cuda"][2], out["cpu"][2])
+    s_v = float(out["cpu"][1].abs().max())
+    s_n = float(out["cpu"][2].abs().max())
+    passed = (e_img <= 1e-5 and e_v <= 1e-4 * s_v and e_n <= 1e-4 * s_n
+              and bool(torch.isfinite(out["cuda"][0]).all()))
+    emit({"phase": "render_card_vs_cpu", "passed": passed,
+          "img_max_abs": e_img, "dv_max_abs": e_v, "dv_scale": s_v,
+          "dn_max_abs": e_n, "dn_scale": s_n,
+          "tolerance": "images 1e-5 abs, gradients 1e-4 x max|g|",
+          "card": card})
+    return passed
+
+
+def phase_main_path(card):
+    """The port's optimize_shape on the bench_step scene, on the card."""
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.render import kernels as K
+    from largesteps_torch.profiling import MAIN_PATH_PARAMS, main_path_scene
+    scene = main_path_scene(seed=SEED)
+    params = {**MAIN_PATH_PARAMS, "steps": STEPS}
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    res = optimize_shape(scene, params, device="cuda")
+    launches = dict(K.LAUNCHES)
+    losses = res["losses"][:, 0]
+    first = res["prof"]["first_step_s"]
+    steady = (STEPS - 1) / (res["wall_time"] - first)
+    passed = (bool(np.isfinite(res["losses"]).all())
+              and losses[-1] < losses[0]
+              and all(n >= STEPS for n in launches.values()))
+    emit({"phase": "main_path_first_step", "first_step_s": first,
+          "card": card})
+    emit({"phase": "main_path", "passed": passed, "steps": STEPS,
+          "it_per_s": steady, "wall_s": res["wall_time"],
+          "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+          "launches": launches,
+          "launches_per_step": {k: n / STEPS for k, n in launches.items()},
+          "setup_s": res["prof"]["setup_s"],
+          "card": card})
+    return passed, launches
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    name, line = phase_card()
+    card = {"name": name, "nvidia_smi": line}
+    failed = []
+    results = {}
+    for phase, fn in (("kernels", phase_kernels),
+                      ("render", phase_render_cpu_vs_card),
+                      ("main_path", phase_main_path)):
+        try:
+            results[phase] = fn(card)
+        except Exception:                 # report, and run the next phase
+            traceback.print_exc()
+            emit({"phase": phase, "passed": False, "error": "exception"})
+            results[phase] = None
+    k_ok, table = results["kernels"] or (False, {})
+    if not k_ok:
+        failed.append("kernels")
+    if not results["render"]:
+        failed.append("render")
+    m_ok, launches = results["main_path"] or (False, {})
+    if not m_ok:
+        failed.append("main_path")
+    if failed:
+        print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
+        return 1
+    for k, row in table.items():
+        row["launches"] = launches[k]
+    emit({"kernels": list(table.values())})
+    print(line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,149 @@
+"""Differentiable multi-view renderer.
+
+Port of ``largesteps_tpu/render/renderer.py`` on the fused CUDA pipeline
+(:mod:`largesteps_torch.render.pipeline`): project all cameras → rasterize
+→ interpolate SH vertex lighting (or constant white for silhouettes) →
+composite over the environment backgrounds → antialias, with ``boost`` on
+the antialias position gradients.  The pure-PyTorch ``backend="xla"``
+counterpart, host-computed ``bins=`` and device meshes are later slices
+(ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from .antialias import face_adjacency
+from .camera import persp_proj, build_mvps, project
+from .pipeline import RenderPipeline, check_bin_overflow, suggest_cap
+from .sh import sh_matrices, sh_eval
+from .texture import texture_bilinear
+
+__all__ = ["Topology", "Renderer", "render_backgrounds"]
+
+
+class Topology:
+    """Static per-epoch mesh topology: faces and edge adjacency (host)."""
+
+    def __init__(self, faces):
+        self.faces = np.ascontiguousarray(np.asarray(faces), dtype=np.int32)
+        self.opp = face_adjacency(self.faces)
+        self._pipe_cache = {}     # (res, shading, boost, cap) -> pipeline
+
+
+def render_backgrounds(envmap, view_mats, fov_x, res) -> torch.Tensor:
+    """Per-view environment backgrounds (C, H, W, 4) by casting each
+    pixel's ray into equirect UVs; alpha set to 0.  Computed on the CPU."""
+    h, w = res
+    envmap = torch.as_tensor(np.asarray(envmap, np.float32))
+    view_mats = torch.as_tensor(np.asarray(view_mats, np.float32))
+    tan_a = np.tan(np.deg2rad(fov_x) / 2.0)
+    ar = w / h
+    xs = (torch.arange(w, dtype=torch.float32) + 0.5) / w * 2.0 - 1.0
+    ys = (torch.arange(h, dtype=torch.float32) + 0.5) / h * 2.0 - 1.0
+    x_ndc = xs[None, :].expand(h, w)
+    y_ndc = ys[:, None].expand(h, w)
+    # camera-space ray under persp_proj's conventions (x negated)
+    d_cam = torch.stack([-x_ndc * tan_a, y_ndc * tan_a / ar,
+                         torch.ones_like(x_ndc)], dim=-1)
+    d_cam = d_cam / torch.linalg.norm(d_cam, dim=-1, keepdim=True)
+    inv_rot = torch.linalg.inv(view_mats)[:, :3, :3]
+    d_world = torch.einsum("cij,hwj->chwi", inv_rot, d_cam)
+    theta = torch.arccos(torch.clamp(d_world[..., 1], -1.0, 1.0))
+    phi = torch.arctan2(d_world[..., 0], d_world[..., 2])
+    uv = torch.stack([0.75 - phi / (2 * np.pi), theta / np.pi], dim=-1)
+    bgs = texture_bilinear(envmap, uv)
+    if bgs.shape[-1] >= 4:
+        bgs[..., -1] = 0.0
+    return bgs
+
+
+class Renderer:
+    """Multi-view differentiable renderer on ``device`` (CUDA unless the
+    caller asks for the CPU).
+
+    ``scene_params`` holds near_clip, far_clip, fov, res_x, res_y,
+    view_mats, envmap and envmap_scale; ``shading`` selects shaded or
+    silhouette images; ``boost`` multiplies the antialias position
+    gradients.  The resolution must tile into 32×128 pixel tiles.
+    """
+
+    def __init__(self, scene_params, shading: bool = True, boost: float = 1.0,
+                 backend: str = "auto", bin_cap: int = 768, device=None):
+        if backend != "auto":
+            raise NotImplementedError(
+                f"backend {backend!r}: the pure-PyTorch rasterizer is the "
+                f"backend='xla' slice (ROADMAP.md Queue 1, item 4)")
+        self.device = resolve_device(device)
+        near = scene_params["near_clip"]
+        far = scene_params["far_clip"]
+        self.fov_x = scene_params["fov"]
+        w = scene_params["res_x"]
+        h = scene_params["res_y"]
+        if h % 32 or w % 128:
+            raise NotImplementedError(
+                f"resolution {h}x{w} does not tile into 32x128 pixel tiles; "
+                f"other sizes need the backend='xla' slice")
+        self.res = (h, w)
+        self.proj_mat = persp_proj(self.fov_x, w / h, near, far)
+        self.view_mats = np.stack([np.asarray(v)
+                                   for v in scene_params["view_mats"]])
+        self.mvps = torch.as_tensor(build_mvps(self.proj_mat, self.view_mats),
+                                    device=self.device)
+        self.boost = float(boost)
+        self.shading = bool(shading)
+        bin_cap = int(bin_cap)
+        if bin_cap > 128 and bin_cap % 128 != 0:
+            raise ValueError(f"bin_cap must be <=128 or a multiple of 128; "
+                             f"got {bin_cap}")
+        self.bin_cap = bin_cap
+        self._bin_cap_floor = bin_cap
+        envmap = scene_params.get("envmap_scale", 1.0) * np.asarray(
+            scene_params["envmap"], np.float32)
+        self.sh_M = sh_matrices(envmap).to(self.device)
+        self.bgs = render_backgrounds(envmap, self.view_mats, self.fov_x,
+                                      self.res).to(self.device)
+
+    @torch.no_grad()
+    def check_overflow(self, v, topology: Topology, grow: bool = True) -> int:
+        """Measure the bin occupancy of ``v`` and, with ``grow``, resize
+        ``bin_cap`` in both directions: up to fit, down (with hysteresis,
+        never below the configured cap) when it is more than twice too
+        large.  Returns the measured max occupancy."""
+        v = torch.as_tensor(v, dtype=torch.float32, device=self.device)
+        faces = torch.as_tensor(topology.faces.astype(np.int64),
+                                device=self.device)
+        occ = check_bin_overflow(project(v, self.mvps), faces, self.res)
+        fit = suggest_cap(occ)
+        if grow:
+            if fit > self.bin_cap:
+                self.bin_cap = fit
+            elif fit < self.bin_cap // 2:
+                self.bin_cap = max(fit, self._bin_cap_floor)
+        elif occ > self.bin_cap:
+            warnings.warn(f"raster bin occupancy {occ} exceeds bin_cap "
+                          f"{self.bin_cap}; tiles will under-draw (suggest "
+                          f"bin_cap={fit})")
+        return occ
+
+    def render(self, v, n, topology: Topology, bins=None):
+        """Render every view: v (V, 3), n (V, 3) → (C, H, W, 4|3),
+        differentiable with respect to v and n."""
+        if bins is not None:
+            raise NotImplementedError(
+                "host-computed bins belong to the large-F slice "
+                "(ROADMAP.md Queue 1, item 8)")
+        key = (self.res, self.shading, self.boost, self.bin_cap)
+        pipe = topology._pipe_cache.get(key)
+        if pipe is None:
+            pipe = RenderPipeline(topology.faces, topology.opp, self.res,
+                                  shading=self.shading, boost=self.boost,
+                                  cap=self.bin_cap)
+            topology._pipe_cache[key] = pipe
+        v_ndc = project(v, self.mvps)
+        if self.shading:
+            return pipe(v_ndc, sh_eval(self.sh_M, n) / np.pi, self.bgs)
+        return pipe(v_ndc, torch.ones_like(v), None)
