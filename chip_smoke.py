@@ -48,6 +48,9 @@ COLS_EDGE = 9            # antialias: sx sy ×3 and opp ×3 of each pair owner
 COLS_RBWD_OUT = 18       # raster_bwd: the per-slot sums of every live slot
 COLS_AA_OUT = 6          # aa_bwd: the per-slot endpoint sums
 F32 = 4
+# kernels redesigned for the H100 after their first port, and the PR that
+# did it (their earlier times: PERF.md)
+REDESIGNED = {"aa_fwd": "PR 2", "aa_bwd": "PR 2"}
 
 
 def emit(obj):
@@ -156,18 +159,33 @@ def phase_card():
     t0 = time.perf_counter()
     built = _cuda.build_all()
     build_s = time.perf_counter() - t0
+    ptxas = {k: _cuda.ptxas_info(k) for k in sorted(built)}
     emit({"phase": "card", "name": name, "count": torch.cuda.device_count(),
           "nvidia_smi": line, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "tf32_cudnn": torch.backends.cudnn.allow_tf32,
-          "build_s": build_s, "built": sorted(built)})
-    return name, line
+          "build_s": build_s, "built": sorted(built), "ptxas": ptxas})
+    return name, line, ptxas
 
 
-def phase_kernels(card):
-    """Each kernel against its plain version on one forward+backward's real
-    inputs at the main path's shapes."""
+def ran(info, channels):
+    """ptxas's registers, stack and spills of the entry that ran: the only
+    one, or the instantiation for ``channels`` colour channels."""
+    entries = [e for e in info if len(info) == 1 or f"ILi{channels}E" in e]
+    if len(entries) != 1:
+        raise RuntimeError(f"no single ptxas entry among {sorted(info)}")
+    r = info[entries[0]]
+    return {"registers": r["registers"], "stack_bytes": r["stack_bytes"],
+            "spill_stores": r["spill_stores"],
+            "spill_loads": r["spill_loads"]}
+
+
+def main_path_inputs():
+    """The kernels' inputs of one forward and backward of the main path on
+    the card: bins of the source mesh in 13 views at 256², the forward
+    planes, the composited colour, and the loss cotangent against the target
+    render."""
     from largesteps_torch.render import kernels as K
     from largesteps_torch.render.camera import project
     from largesteps_torch.render.pipeline import setup_and_bin
@@ -197,8 +215,7 @@ def phase_kernels(card):
         rfb, rbb, bins, counts = setup_and_bin(v_ndc, faces, attrs, opp,
                                                256, 256, cap)
     res = r.res
-    fwd = K.raster_fwd(rfb, counts, res)
-    u, vv, z, fid, slot, c0, c1, c2 = fwd
+    u, vv, z, fid, slot, c0, c1, c2 = K.raster_fwd(rfb, counts, res)
     cov = (fid > 0)[..., None]
     comp = torch.where(cov, torch.cat([torch.stack([c0, c1, c2], -1),
                                        cov.float()], -1), r.bgs).contiguous()
@@ -206,8 +223,23 @@ def phase_kernels(card):
     d_out = (2.0 * (img - ref) / img.numel()).contiguous()
     d_comp, _ = K.aa_bwd(rbb, counts, fid, z, comp, d_out, res)
     d_col = torch.where(cov, d_comp[..., :3], 0.0).contiguous()
-    zeros = torch.zeros_like(fid)
     torch.cuda.synchronize()
+    return {"occ": occ, "cap": cap, "res": res, "rfb": rfb, "rbb": rbb,
+            "counts": counts, "fid": fid, "z": z, "slot": slot,
+            "comp": comp, "d_out": d_out, "d_col": d_col,
+            "n_faces": f.shape[0]}
+
+
+def phase_kernels(card, ptxas):
+    """Each kernel against its plain version on one forward+backward's real
+    inputs at the main path's shapes."""
+    from largesteps_torch.render import kernels as K
+    m = main_path_inputs()
+    occ, cap, res, rfb, rbb, counts = (m[k] for k in ("occ", "cap", "res",
+                                                      "rfb", "rbb", "counts"))
+    fid, z, slot, comp, d_out, d_col = (m[k] for k in (
+        "fid", "z", "slot", "comp", "d_out", "d_col"))
+    zeros = torch.zeros_like(fid)
 
     w = work(rbb, counts, fid, z, slot, res)
     live, pix, D = w["live"], w["pixels"], comp.shape[-1]
@@ -266,6 +298,9 @@ def phase_kernels(card):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
+        if name in REDESIGNED:
+            table[name].update({"redesigned": REDESIGNED[name],
+                                "ptxas": ran(ptxas[name], D)})
         emit({"phase": "kernel", "name": name, "passed": passed,
               "max_abs_err": errs, "max_rel_err": [
                   e / s if s else 0.0 for e, s in zip(errs, scales)],
@@ -350,11 +385,11 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    name, line = phase_card()
+    name, line, ptxas = phase_card()
     card = {"name": name, "nvidia_smi": line}
     failed = []
     results = {}
-    for phase, fn in (("kernels", phase_kernels),
+    for phase, fn in (("kernels", lambda c: phase_kernels(c, ptxas)),
                       ("render", phase_render_cpu_vs_card),
                       ("main_path", phase_main_path)):
         try:

@@ -10,43 +10,53 @@ launch of any kernel; nothing is built when the package is imported.
 ``-fmad=false`` keeps ``a*b + c`` as two rounded operations, as PyTorch's
 elementwise kernels compute it, so a kernel rounds like its plain PyTorch
 version and the two agree on coverage and face ids bit for bit.
+
+``-Xptxas -v`` makes ptxas report each kernel's registers, stack frame,
+spills and shared memory; the report is kept beside the library and read
+back by :func:`ptxas_info`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 
-__all__ = ["library", "check", "build_all"]
+__all__ = ["library", "check", "build_all", "ptxas_info"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 _BUILD = os.path.join(_HERE, "_build")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-fmad=false"]
+          "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C signature of every entry point: (argtypes), all return cudaError_t
+# C signature (argtypes, restype) of every exported function; the kernel
+# ``name``'s launcher is ``ls_<name>`` and returns a cudaError_t
 _SIGNATURES = {
-    "raster_fwd": ("ls_raster_fwd", [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                     _F, _F, _P]),
-    "raster_bwd": ("ls_raster_bwd", [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _I, _F, _F, _P]),
-    "aa_fwd": ("ls_aa_fwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                             _I, _I, _F, _F, _P]),
-    "aa_bwd": ("ls_aa_bwd", [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _F, _F, _P]),
+    "ls_raster_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P], _I),
+    "ls_raster_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _P], _I),
+    "ls_aa_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _F, _F, _P], _I),
+    "ls_aa_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _I, _F, _F, _P], _I),
+    # bytes of global scratch the antialias owner tables need, from
+    # (tiles, cap); exported by aa_fwd's library, used by both kernels
+    "ls_aa_scratch": ([_I, _I], ctypes.c_longlong),
 }
+_KERNELS = ("raster_fwd", "raster_bwd", "aa_fwd", "aa_bwd")
 
 _lock = threading.Lock()
-_libs: dict = {}
+_handles: dict = {}
+_fns: dict = {}
 
 
 def _nvcc() -> str:
@@ -65,7 +75,7 @@ def _sources():
             digest.update(fh.read())
     common = digest.hexdigest()
     out = {}
-    for name in _SIGNATURES:
+    for name in _KERNELS:
         src = os.path.join(_CSRC, f"{name}.cu")
         with open(src, "rb") as fh:
             tag = hashlib.sha256(common.encode() + fh.read()).hexdigest()[:16]
@@ -97,25 +107,64 @@ def build_all() -> dict:
             errors.append(f"{name}: nvcc exited {proc.returncode}\n"
                           f"{out.decode(errors='replace')}")
             continue
+        with open(f"{tmp}.ptxas", "wb") as fh:
+            fh.write(out)
+        os.replace(f"{tmp}.ptxas", f"{lib}.ptxas.txt")
         os.replace(tmp, lib)          # atomic: concurrent builders agree
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return seconds
 
 
-def library(name: str):
-    """The loaded entry point of kernel ``name``, built on first use."""
+def library(name: str, symbol: str = ""):
+    """The loaded function ``symbol`` (default ``ls_<name>``, the launcher)
+    of kernel ``name``'s library, built on first use."""
+    symbol = symbol or f"ls_{name}"
     with _lock:
-        if name not in _libs:
-            build_all()
-            src, lib = _sources()[name]
-            handle = ctypes.CDLL(lib)
-            sym, argtypes = _SIGNATURES[name]
-            fn = getattr(handle, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = (handle, fn)
-        return _libs[name][1]
+        if symbol not in _fns:
+            if name not in _handles:
+                build_all()
+                _handles[name] = ctypes.CDLL(_sources()[name][1])
+            fn = getattr(_handles[name], symbol)
+            fn.argtypes, fn.restype = _SIGNATURES[symbol]
+            _fns[symbol] = fn
+        return _fns[symbol]
+
+
+_PTXAS = {
+    "registers": r"Used (\d+) registers",
+    "stack_bytes": r"(\d+) bytes stack frame",
+    "spill_stores": r"(\d+) bytes spill stores",
+    "spill_loads": r"(\d+) bytes spill loads",
+    "smem_bytes": r"(\d+) bytes smem",
+}
+
+
+def ptxas_info(name: str) -> dict:
+    """What ptxas reported for each entry function (mangled name) of kernel
+    ``name``'s library, built first if missing: {entry: {"registers",
+    "stack_bytes", "spill_stores", "spill_loads", "smem_bytes", "lines"}}
+    (smem 0 where ptxas names none)."""
+    build_all()
+    with open(_sources()[name][1] + ".ptxas.txt", errors="replace") as fh:
+        text = fh.read()
+    info, entry = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            entry = m.group(1)
+            info.setdefault(entry, {**dict.fromkeys(_PTXAS), "smem_bytes": 0,
+                                    "lines": []})
+            continue
+        hits = {k: re.search(rx, line) for k, rx in _PTXAS.items()}
+        if entry is None or not any(hits.values()):
+            continue
+        info[entry]["lines"].append(line.strip())
+        for k, m in hits.items():
+            if m:
+                info[entry][k] = int(m.group(1))
+    return info
 
 
 def check(name: str, err: int) -> None:

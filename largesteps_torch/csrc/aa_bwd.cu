@@ -1,173 +1,152 @@
 // aa_bwd: nvdiffrast antialias, backward.
 //
-// Replaces: largesteps_tpu/render/pallas_core.py, aa_bwd_pallas /
-// _aa_bwd_kernel (the TPU kernel gathers owner records and reduces the
-// endpoint gradients per slot with one-hot bf16 matmuls keyed by face id;
-// here a bin search finds the owner's slot and atomics sum per slot).
+// Replaces: largesteps_tpu/render/pallas_core.py, aa_bwd_pallas (line 1819)
+// / _aa_bwd_kernel (line 1706).  The TPU kernel gathers owner records and
+// reduces the endpoint gradients per slot with one-hot bf16 matmuls keyed by
+// face id, and writes three colour-cotangent planes that XLA shifts and adds.
 //
-// Bound on the H100: bytes.  Per pixel it reads the id, depth, colour and
-// output-cotangent planes of the pixel and its two neighbours and writes
-// three cotangent planes; the arithmetic on the pairs whose ids differ is
-// small beside that.
+// Bound on the H100: bytes.  A pixel reads its id, depth, colour and output
+// cotangent and writes its colour cotangent; the arithmetic of the pairs
+// whose ids differ is small beside that.
 //
-// Design: the grid, the pixel mapping and the owner search of aa_fwd.cu.
-// The colour cotangents go out as the JAX kernel's three planes (the
-// anchor's own and the right and down neighbours' shares, shifted back by
-// the wrapper).  The screen-space gradients of the winning edge's two
-// endpoints, through the crossing parameter t, are summed over both pair
-// directions into a (cap, 6) shared-memory table per owner slot (18 KB at
-// cap 768), or straight into the zeroed output with global atomics where the
-// table does not fit.  The sliver guard zeroes non-finite contributions, as
-// pallas_core.py:1786 does.
+// Design: the grid, the pair list, the owner tables and the phases of
+// aa_fwd.cu.
+// - d_color is written whole: a pixel sums its own two pairs' cotangents,
+//   then adds d_out, then the shares of the pairs anchored at its left and
+//   lower neighbour, in the plain version's order
+//   (render/kernels.py:_aa_bwd_combine).
+// - The screen-space gradients of the winning edge's two endpoints, through
+//   the crossing parameter t, are added for the pairs anchored in the strip
+//   only, at the owner's slot of this tile, into the zeroed output with
+//   global atomics (four a blending pair; a per-block shared table flushed
+//   at the end measured slower on the H100, since the tile's strips share
+//   the slots).
+// - Sliver guard, as pallas_core.py:1786: a non-finite endpoint contribution
+//   (a near-zero crossing denominator overflows 1/den²) is zeroed.
 #include "common.cuh"
 
 namespace {
-
-constexpr int CH = 1024;   // face ids per shared-memory chunk
 
 __device__ __forceinline__ float sane(float x) {
   return fabsf(x) < ls::BIG ? x : 0.0f;   // false for inf and NaN alike
 }
 
-__global__ void __launch_bounds__(ls::THREADS)
+// The endpoint gradients of a blending pair anchored in the strip, through
+// t, added at its owner's slot of this tile's rows of dslot (`ob`).
+template <int D>
+__device__ __forceinline__ void endpoint_grads(
+    const ls::OwnerTable& tab, const ls::AaItem& q, int slot, int take,
+    float t, const float* __restrict__ color, const float* __restrict__ dout,
+    float* ob) {
+  float c0[D], cn[D], d0[D], dn[D];
+  ls::load_px<D>(color, q.p, c0);
+  ls::load_px<D>(color, q.pn, cn);
+  ls::load_px<D>(dout, q.p, d0);
+  ls::load_px<D>(dout, q.pn, dn);
+  const bool lo = t < 0.5f;           // else t >= 0.5: the pair blends
+  float dt = 0.0f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) dt = dt - (cn[k] - c0[k]) * (lo ? d0[k] : dn[k]);
+  float fld[9];
+  ls::aa_fields(tab.rb + (size_t)slot * 32, fld);
+  float* row = ob + (size_t)slot * 8;
+  const float pbx = q.pax + q.d_ex;
+  const float pby = q.pay + q.d_ey;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {     // only the taken edge has dt != 0
+    if (e != take) continue;
+    const ls::Edge g = ls::aa_edge(fld, e, q.pax, q.pay, q.d_ex, q.d_ey);
+    const float inv_d2 = 1.0f / (g.den * g.den);
+    const float dea = sane(dt * (-g.eb) * inv_d2);
+    const float deb = sane(dt * g.ea * inv_d2);
+    const int j0 = e, j1 = (e + 1) % 3;
+    atomicAdd(row + 2 * j0, dea * (g.by - q.pay) + deb * (g.by - pby));
+    atomicAdd(row + 2 * j0 + 1, dea * (q.pax - g.bx) + deb * (pbx - g.bx));
+    atomicAdd(row + 2 * j1, dea * (q.pay - g.ay) + deb * (pby - g.ay));
+    atomicAdd(row + 2 * j1 + 1, dea * (g.ax - q.pax) + deb * (g.ax - pbx));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(ls::AA_THREADS)
 aa_bwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
               const float* __restrict__ fidp, const float* __restrict__ zp,
               const float* __restrict__ color, const float* __restrict__ dout,
-              float* __restrict__ dcol, float* __restrict__ dslot, int C,
-              int TY, int TX, int cap, int H, int W, int D, float sxs,
-              float sys, int use_smem) {
-  __shared__ float sfid[CH];
-  extern __shared__ float tab[];          // (cap, 6) when use_smem
-  const ls::Tile t = ls::tile_of_block(TY, TX);
-  const int n = min(counts[t.b], cap);
-  const float* rb = rec + (size_t)t.b * cap * 32;
-  float* ob = dslot + (size_t)t.b * cap * 8;
-  const int col = threadIdx.x % ls::TILE_W;
-  const int x = t.tx * ls::TILE_W + col;
-  const int xr = min(x + 1, W - 1);
-  if (use_smem)
-    for (int i = threadIdx.x; i < cap * 6; i += blockDim.x) tab[i] = 0.0f;
+              float* __restrict__ dcol, float* __restrict__ dslot,
+              const ls::AaGrid g) {
+  extern __shared__ unsigned long long smem[];   // the owner tables
+  __shared__ ls::AaShared sh;
+  const int H = g.H, W = g.W;
+  const ls::AaBlock b = ls::aa_block(g.TY, g.TX);
+  float* ob = dslot + (size_t)b.tile * g.cap * 8;
+  const ls::AaTables T = ls::aa_collect(rec, counts, fidp, smem, g, b, sh);
 
-  float key[2 * ls::PPT], own[2 * ls::PPT], oth[2 * ls::PPT];
-  int slot[2 * ls::PPT];
-#pragma unroll
-  for (int i = 0; i < ls::PPT; ++i) {
-    const int y = t.ty * ls::TILE_H + threadIdx.x / ls::TILE_W + 2 * i;
-    const int yd = min(y + 1, H - 1);
-    const size_t pix = ((size_t)t.c * H + y) * W + x;
-    const size_t pr = ((size_t)t.c * H + y) * W + xr;
-    const size_t pd = ((size_t)t.c * H + yd) * W + x;
-    bool dif;
-    ls::aa_common(fidp[pix], zp[pix], fidp[pr], zp[pr], own[2 * i],
-                  oth[2 * i], dif);
-    key[2 * i] = dif ? own[2 * i] : 0.0f;
-    ls::aa_common(fidp[pix], zp[pix], fidp[pd], zp[pd], own[2 * i + 1],
-                  oth[2 * i + 1], dif);
-    key[2 * i + 1] = dif ? own[2 * i + 1] : 0.0f;
-    slot[2 * i] = slot[2 * i + 1] = -1;
+  // phase 2: the crossings of the listed pairs; the endpoint gradients of
+  // those anchored in the strip
+  for (int k = threadIdx.x; k < sh.count; k += blockDim.x) {
+    const ls::AaItem q = ls::aa_item(sh.list[k], b, H, W, g.sxs, g.sys);
+    const ls::OwnerTable tab = T.get(q.table);
+    float t = 0.0f;
+    int slot, take;
+    const bool act = ls::aa_pair(tab, fidp[q.p], zp[q.p], fidp[q.pn],
+                                 zp[q.pn], q.pax, q.pay, q.d_ex, q.d_ey, t,
+                                 slot, take);
+    if (act) sh.t[q.code] = t;
+    if (act && q.table == 0 && q.r >= 0)
+      endpoint_grads<D>(tab, q, slot, take, t, color, dout, ob);
   }
-  ls::find_slots(rb, n, sfid, CH, key, slot);   // syncs: table zeroed too
+  __syncthreads();
 
-  const float pax = ls::pixel_x(t.tx, col, sxs);
-  const size_t plane = (size_t)C * H * W * D;
+  // phase 3: own pairs' cotangents, plus d_out, plus the left and the
+  // lower neighbour's shares
+  const int c = threadIdx.x % ls::TILE_W;
+  const int x = b.tx * ls::TILE_W + c;
 #pragma unroll 1
-  for (int i = 0; i < ls::PPT; ++i) {
-    const int row = threadIdx.x / ls::TILE_W + 2 * i;
-    const int y = t.ty * ls::TILE_H + row;
-    const int yd = min(y + 1, H - 1);
-    const float pay = ls::pixel_y(t.ty, row, sys);
-    const size_t pix = ((size_t)t.c * H + y) * W + x;
-    const size_t pn[2] = {((size_t)t.c * H + y) * W + xr,
-                          ((size_t)t.c * H + yd) * W + x};
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int i = 0; i < 2; ++i) {
+    const int r = threadIdx.x / ls::TILE_W + ls::AA_ROWS * i;
+    const int y = b.ty * ls::TILE_H + b.strip * ls::AA_STRIP_H + r;
+    const size_t p = ((size_t)b.c * H + y) * W + x;
+    const ls::AaWeights w = ls::aa_weights_at(sh, r, c);
+    float d0[D], dn[D], o[D];
+    ls::load_px<D>(dout, p, d0);
+    ls::load_px<D>(dout, p - x + min(x + 1, W - 1), dn);
 #pragma unroll
-    for (int dir = 0; dir < 2; ++dir) {
-      const int s = slot[2 * i + dir];
-      const float d_ex = dir == 0 ? sxs : 0.0f;
-      const float d_ey = dir == 0 ? 0.0f : sys;
-      bool found = false, take[3] = {false, false, false};
-      ls::EdgeGeo geo[3];
-      float tt = 0.0f;
-      if (s >= 0) {
-        const float* f = rb + (size_t)s * 32;
-        const float fld[9] = {f[9], f[10], f[11], f[12], f[13], f[14],
-                              f[23], f[24], f[25]};
-        tt = ls::aa_pair_t(fld, pax, pay, d_ex, d_ey, oth[2 * i + dir],
-                           found, take, geo);
-      }
-      const bool lo = found && tt < 0.5f;
-      const bool hi = found && tt >= 0.5f;
-      const float wa = lo ? 0.5f - tt : 0.0f;
-      const float wb = hi ? tt - 0.5f : 0.0f;
-      float dt = 0.0f;
-      for (int cc = 0; cc < D; ++cc) {
-        const float c0 = color[pix * D + cc];
-        const float diff = color[pn[dir] * D + cc] - c0;
-        const float d0 = dout[pix * D + cc];
-        const float dn = dout[pn[dir] * D + cc];
-        acc[cc] = acc[cc] - wa * d0 + wb * dn;
-        dcol[(1 + dir) * plane + pix * D + cc] = wa * d0 - wb * dn;
-        dt = dt - diff * (lo ? d0 : (hi ? dn : 0.0f));
-      }
-      if (!found) continue;
-      const float pbx = pax + d_ex;
-      const float pby = pay + d_ey;
-      float ds[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k = 0; k < D; ++k) o[k] = 0.0f - w.wa_h * d0[k] + w.wb_h * dn[k];
+    ls::load_px<D>(dout, ((size_t)b.c * H + min(y + 1, H - 1)) * W + x, dn);
 #pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const ls::EdgeGeo& g = geo[e];
-        const float dtm = take[e] ? dt : 0.0f;
-        const float inv_d2 = 1.0f / (g.den * g.den);
-        const float dea = sane(dtm * (-g.eb) * inv_d2);
-        const float deb = sane(dtm * g.ea * inv_d2);
-        const int j0 = e, j1 = (e + 1) % 3;
-        ds[2 * j0] = ds[2 * j0] + (dea * (g.by - pay) + deb * (g.by - pby));
-        ds[2 * j0 + 1] =
-            ds[2 * j0 + 1] + (dea * (pax - g.bx) + deb * (pbx - g.bx));
-        ds[2 * j1] = ds[2 * j1] + (dea * (pay - g.ay) + deb * (pby - g.ay));
-        ds[2 * j1 + 1] =
-            ds[2 * j1 + 1] + (dea * (g.ax - pax) + deb * (g.ax - pbx));
-      }
-      if (use_smem) {
+    for (int k = 0; k < D; ++k)
+      o[k] = (o[k] - w.wa_v * d0[k] + w.wb_v * dn[k]) + d0[k];
+    if (x > 0) ls::load_px<D>(dout, p - 1, dn);
 #pragma unroll
-        for (int q = 0; q < 6; ++q) atomicAdd(&tab[s * 6 + q], ds[q]);
-      } else {
+    for (int k = 0; k < D; ++k)
+      o[k] = o[k] + (x > 0 ? w.wa_l * dn[k] - w.wb_l * d0[k] : 0.0f);
+    if (y > 0) ls::load_px<D>(dout, p - W, dn);
 #pragma unroll
-        for (int q = 0; q < 6; ++q) atomicAdd(&ob[(size_t)s * 8 + q], ds[q]);
-      }
-    }
-    for (int cc = 0; cc < D; ++cc) dcol[pix * D + cc] = acc[cc];
-  }
-  if (use_smem) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < cap * 6; i += blockDim.x) {
-      const int s = i / 6;
-      ob[(size_t)s * 8 + (i - s * 6)] = tab[i];
-    }
+    for (int k = 0; k < D; ++k)
+      o[k] = o[k] + (y > 0 ? w.wa_b * dn[k] - w.wb_b * d0[k] : 0.0f);
+    ls::store_px<D>(dcol, p, o);
   }
 }
 
 }  // namespace
 
+// D = 4 (shaded) or 3 (silhouette) colour channels; `scratch` as aa_fwd's
+// (ls_aa_scratch in aa_fwd.cu).
 extern "C" int ls_aa_bwd(const float* rec, const int* counts, const float* fid,
                          const float* z, const float* color, const float* dout,
-                         float* dcol, float* dslot, int C, int TY, int TX,
-                         int cap, int H, int W, int D, float sxs, float sys,
-                         void* stream) {
-  if (D > 4) return (int)cudaErrorInvalidValue;
-  const int blocks = C * TY * TX;
-  const size_t table = (size_t)cap * 6 * sizeof(float);
-  const int use_smem = table <= (size_t)ls::SMEM_TABLE_MAX;
-  const size_t smem = use_smem ? table : 0;
-  if (smem + CH * sizeof(float) > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        aa_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+                         float* dcol, float* dslot, void* scratch, int C,
+                         int TY, int TX, int cap, int H, int W, int D,
+                         float sxs, float sys, void* stream) {
+  const ls::AaGrid g{nullptr, nullptr, TY, TX, cap, 0, H, W, sxs, sys};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 3:
+      return ls::aa_launch<aa_bwd_kernel<3>>(g, C, scratch, s, rec, counts,
+                                             fid, z, color, dout, dcol, dslot);
+    case 4:
+      return ls::aa_launch<aa_bwd_kernel<4>>(g, C, scratch, s, rec, counts,
+                                             fid, z, color, dout, dcol, dslot);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  if (blocks > 0)
-    aa_bwd_kernel<<<blocks, ls::THREADS, smem, (cudaStream_t)stream>>>(
-        rec, counts, fid, z, color, dout, dcol, dslot, C, TY, TX, cap, H, W,
-        D, sxs, sys, use_smem);
-  return (int)cudaGetLastError();
 }

@@ -1,110 +1,115 @@
 // aa_fwd: nvdiffrast antialias, forward.
 //
-// Replaces: largesteps_tpu/render/pallas_core.py, aa_fwd_pallas /
-// _aa_fwd_kernel (the TPU kernel fetches the owner's record with a one-hot
-// bf16 matmul keyed by face id; here a search of the tile's bin finds its
-// slot and the pixel reads the record directly).
+// Replaces: largesteps_tpu/render/pallas_core.py, aa_fwd_pallas (line 1635)
+// / _aa_fwd_kernel (line 1524).  The TPU kernel fetches each pair owner's
+// record with a one-hot bf16 matmul keyed by face id and writes three
+// planes (the anchor's blend and the right and down neighbours' shares),
+// which XLA shifts back and adds (pallas_core.py:1696-1701).
 //
-// Bound on the H100: bytes.  The work per pixel pair is a few dozen float
-// ops on the three-edge crossing test, and only pairs whose face ids differ
-// do it; the id, depth and colour planes dominate the traffic.
+// Bound on the H100: bytes.  A pixel reads its id, depth and colour and
+// writes its colour; only the pairs whose ids differ (about 14 % on the main
+// path) run the few dozen float ops of the crossing test.
 //
-// Design: one block of 256 threads per (camera, tile), 16 pixels a thread.
-// For each pixel and each pair direction (right and down neighbour, row 0 at
-// the image bottom, the last row and column paired with themselves) the
-// owner is the nearer face; its slot is found by a linear search over the
-// tile's face ids, staged through shared memory in chunks of 1024 (the bins
-// use a 1 px expanded bbox, so an owner across the tile border is in them).
-// The kernel writes the JAX kernel's three planes: the anchor's blend and the
-// right and down neighbours' shares, which the wrapper shifts back and adds.
+// Design, to move little more than those bytes:
+// - Only the pairs whose ids differ run a lookup and an edge test, each
+//   once: a block first lists them (compacted, so every lane of a warp has
+//   one), then combines (common.cuh, "A block works in three phases").
+// - Owner lookup in O(1): hash tables face id -> lowest live slot, built
+//   from the bins' id column (common.cuh:OwnerTable), where a search of the
+//   tile's bin (hundreds of ids) for every pair took most of the time.  A
+//   block builds its tables in shared memory; at large caps each tile's
+//   table is built once in global memory and shared (common.cuh, AA_TABLES).
+// - The shift-and-add is fused: a pixel adds, in the order of the plain
+//   version (render/kernels.py:_aa_fwd_combine), its own blend, the share
+//   of the pair anchored at its left neighbour and that of the pair
+//   anchored at its lower neighbour, and writes the final colour.  A pair
+//   anchored in the tile to the left or below is looked up in that tile's
+//   bin, as the plain version does, so the result is the same even where
+//   bins overflow.
+// - A grid that fills the card: one block of 512 threads per (camera, tile,
+//   8-row strip), two pixels a thread (832 blocks at 13 views of 256²).
+// - Colour moves as one float4 a pixel when D = 4; no per-thread array is
+//   indexed at run time, so nothing lives on the stack.
 #include "common.cuh"
 
 namespace {
 
-constexpr int CH = 1024;   // face ids per shared-memory chunk
-
-__global__ void __launch_bounds__(ls::THREADS)
+template <int D>
+__global__ void __launch_bounds__(ls::AA_THREADS)
 aa_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
               const float* __restrict__ fidp, const float* __restrict__ zp,
               const float* __restrict__ color, float* __restrict__ out,
-              int C, int TY, int TX, int cap, int H, int W, int D, float sxs,
-              float sys) {
-  __shared__ float sfid[CH];
-  const ls::Tile t = ls::tile_of_block(TY, TX);
-  const int n = min(counts[t.b], cap);
-  const float* rb = rec + (size_t)t.b * cap * 32;
-  const int col = threadIdx.x % ls::TILE_W;
-  const int x = t.tx * ls::TILE_W + col;
-  const int xr = min(x + 1, W - 1);
+              const ls::AaGrid g) {
+  extern __shared__ unsigned long long smem[];   // the owner tables
+  __shared__ ls::AaShared sh;
+  const int H = g.H, W = g.W;
+  const ls::AaBlock b = ls::aa_block(g.TY, g.TX);
+  const ls::AaTables T = ls::aa_collect(rec, counts, fidp, smem, g, b, sh);
 
-  float key[2 * ls::PPT], own[2 * ls::PPT], oth[2 * ls::PPT];
-  int slot[2 * ls::PPT];
-#pragma unroll
-  for (int i = 0; i < ls::PPT; ++i) {
-    const int y = t.ty * ls::TILE_H + threadIdx.x / ls::TILE_W + 2 * i;
-    const int yd = min(y + 1, H - 1);
-    const size_t pix = ((size_t)t.c * H + y) * W + x;
-    const size_t pr = ((size_t)t.c * H + y) * W + xr;
-    const size_t pd = ((size_t)t.c * H + yd) * W + x;
-    bool dif;
-    ls::aa_common(fidp[pix], zp[pix], fidp[pr], zp[pr], own[2 * i],
-                  oth[2 * i], dif);
-    key[2 * i] = dif ? own[2 * i] : 0.0f;
-    ls::aa_common(fidp[pix], zp[pix], fidp[pd], zp[pd], own[2 * i + 1],
-                  oth[2 * i + 1], dif);
-    key[2 * i + 1] = dif ? own[2 * i + 1] : 0.0f;
-    slot[2 * i] = slot[2 * i + 1] = -1;
+  // phase 2: the crossings of the listed pairs
+  for (int k = threadIdx.x; k < sh.count; k += blockDim.x) {
+    const ls::AaItem q = ls::aa_item(sh.list[k], b, H, W, g.sxs, g.sys);
+    float t = 0.0f;
+    int slot, take;
+    if (ls::aa_pair(T.get(q.table), fidp[q.p], zp[q.p], fidp[q.pn], zp[q.pn],
+                    q.pax, q.pay, q.d_ex, q.d_ey, t, slot, take))
+      sh.t[q.code] = t;
   }
-  ls::find_slots(rb, n, sfid, CH, key, slot);
+  __syncthreads();
 
-  const float pax = ls::pixel_x(t.tx, col, sxs);
+  // phase 3: own blend, plus the left and the lower neighbour's share
+  const int c = threadIdx.x % ls::TILE_W;
+  const int x = b.tx * ls::TILE_W + c;
 #pragma unroll 1
-  for (int i = 0; i < ls::PPT; ++i) {
-    const int row = threadIdx.x / ls::TILE_W + 2 * i;
-    const int y = t.ty * ls::TILE_H + row;
-    const int yd = min(y + 1, H - 1);
-    const float pay = ls::pixel_y(t.ty, row, sys);
-    float wa[2] = {0.0f, 0.0f}, wb[2] = {0.0f, 0.0f};
+  for (int i = 0; i < 2; ++i) {
+    const int r = threadIdx.x / ls::TILE_W + ls::AA_ROWS * i;
+    const int y = b.ty * ls::TILE_H + b.strip * ls::AA_STRIP_H + r;
+    const size_t p = ((size_t)b.c * H + y) * W + x;
+    const ls::AaWeights w = ls::aa_weights_at(sh, r, c);
+    float c0[D], cn[D], o[D];
+    ls::load_px<D>(color, p, c0);
+    ls::load_px<D>(color, p - x + min(x + 1, W - 1), cn);
 #pragma unroll
-    for (int dir = 0; dir < 2; ++dir) {
-      const int s = slot[2 * i + dir];
-      if (s < 0) continue;                 // no differing pair, or no owner
-      const float* f = rb + (size_t)s * 32;
-      const float fld[9] = {f[9], f[10], f[11], f[12], f[13], f[14],
-                            f[23], f[24], f[25]};
-      bool found, take[3];
-      ls::EdgeGeo geo[3];
-      const float tt = ls::aa_pair_t(fld, pax, pay, dir == 0 ? sxs : 0.0f,
-                                     dir == 0 ? 0.0f : sys, oth[2 * i + dir],
-                                     found, take, geo);
-      if (!found) continue;
-      wa[dir] = tt < 0.5f ? 0.5f - tt : 0.0f;
-      wb[dir] = tt >= 0.5f ? tt - 0.5f : 0.0f;
-    }
-    const size_t pix = ((size_t)t.c * H + y) * W + x;
-    const size_t pr = ((size_t)t.c * H + y) * W + xr;
-    const size_t pd = ((size_t)t.c * H + yd) * W + x;
-    const size_t plane = (size_t)C * H * W * D;
-    for (int cc = 0; cc < D; ++cc) {
-      const float c0 = color[pix * D + cc];
-      const float dh = color[pr * D + cc] - c0;
-      const float dv = color[pd * D + cc] - c0;
-      out[pix * D + cc] = c0 + wa[0] * dh + wa[1] * dv;
-      out[plane + pix * D + cc] = -wb[0] * dh;
-      out[2 * plane + pix * D + cc] = -wb[1] * dv;
-    }
+    for (int k = 0; k < D; ++k) o[k] = c0[k] + w.wa_h * (cn[k] - c0[k]);
+    ls::load_px<D>(color, ((size_t)b.c * H + min(y + 1, H - 1)) * W + x, cn);
+#pragma unroll
+    for (int k = 0; k < D; ++k) o[k] = o[k] + w.wa_v * (cn[k] - c0[k]);
+    if (x > 0) ls::load_px<D>(color, p - 1, cn);
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      o[k] = o[k] + (x > 0 ? -w.wb_l * (c0[k] - cn[k]) : 0.0f);
+    if (y > 0) ls::load_px<D>(color, p - W, cn);
+#pragma unroll
+    for (int k = 0; k < D; ++k)
+      o[k] = o[k] + (y > 0 ? -w.wb_b * (c0[k] - cn[k]) : 0.0f);
+    ls::store_px<D>(out, p, o);
   }
 }
 
 }  // namespace
 
+// Bytes of the zeroed global scratch the owner tables of both antialias
+// kernels need for `tiles` tiles (0: they fit shared memory).
+extern "C" long long ls_aa_scratch(int tiles, int cap) {
+  return ls::aa_scratch_bytes(tiles, cap);
+}
+
+// D = 4 (shaded) or 3 (silhouette) colour channels.
 extern "C" int ls_aa_fwd(const float* rec, const int* counts,
                          const float* fid, const float* z, const float* color,
-                         float* out, int C, int TY, int TX, int cap, int H,
-                         int W, int D, float sxs, float sys, void* stream) {
-  const int blocks = C * TY * TX;
-  if (blocks > 0)
-    aa_fwd_kernel<<<blocks, ls::THREADS, 0, (cudaStream_t)stream>>>(
-        rec, counts, fid, z, color, out, C, TY, TX, cap, H, W, D, sxs, sys);
-  return (int)cudaGetLastError();
+                         float* out, void* scratch, int C, int TY, int TX,
+                         int cap, int H, int W, int D, float sxs, float sys,
+                         void* stream) {
+  const ls::AaGrid g{nullptr, nullptr, TY, TX, cap, 0, H, W, sxs, sys};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 3:
+      return ls::aa_launch<aa_fwd_kernel<3>>(g, C, scratch, s, rec, counts,
+                                             fid, z, color, out);
+    case 4:
+      return ls::aa_launch<aa_fwd_kernel<4>>(g, C, scratch, s, rec, counts,
+                                             fid, z, color, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -2,8 +2,9 @@
 //
 // Layouts are the JAX package's: records (C, TY, TX, cap, 32) float32,
 // counts (C, TY, TX) int32, planes (C, H, W) float32 with row 0 at the image
-// bottom, colours (C, H, W, D), 32x128 pixel tiles.  One block works on one
-// (camera, tile); blockIdx.x = (c * TY + ty) * TX + tx.
+// bottom, colours (C, H, W, D), 32x128 pixel tiles.  One block of the
+// raster kernels works on one (camera, tile); blockIdx.x = (c * TY + ty) *
+// TX + tx.  The antialias kernels' grid is below.
 //
 // Every expression is written in the operation order of the plain PyTorch
 // version in render/kernels.py, and the library is built with -fmad=false,
@@ -37,12 +38,123 @@ __device__ __forceinline__ Tile tile_of_block(int TY, int TX) {
   return t;
 }
 
-// NDC centre of pixel column x (global) and row y (global)
+// NDC centre of pixel column col (row) of tile tx (ty); col and row may
+// reach one pixel past the tile, the sums stay exact
 __device__ __forceinline__ float pixel_x(int tx, int col, float sxs) {
   return (((float)(tx * TILE_W) + (float)col) + 0.5f) * sxs - 1.0f;
 }
 __device__ __forceinline__ float pixel_y(int ty, int row, float sys) {
   return (((float)(ty * TILE_H) + (float)row) + 0.5f) * sys - 1.0f;
+}
+
+// ---------------------------------------------------------------------------
+// Antialias (aa_fwd.cu, aa_bwd.cu)
+// ---------------------------------------------------------------------------
+// One block per (camera, tile, strip of AA_STRIP_H rows): blockIdx.x =
+// tile * AA_STRIPS + strip, tile = (c * TY + ty) * TX + tx.  AA_THREADS
+// threads, neighbouring threads on neighbouring columns; each thread takes
+// the pixel of its column in rows r and r + AA_ROWS of the strip.
+//
+// A block works in three phases (aa_collect, then each kernel's own):
+// 1. It lists the pixel pairs whose ids differ (about 14 % on the main
+//    path) that touch the strip: those anchored in it, and those anchored
+//    one pixel left of it or below it that end in it.  Only these run a
+//    lookup and an edge test, each once, with every lane of a warp busy.
+// 2. Each listed pair's crossing t goes to a shared grid of the strip's
+//    anchors, rows -1..AA_STRIP_H-1 by columns -1..TILE_W-1; a pair that
+//    does not blend (equal ids, no owner, no crossing) keeps AA_NO_T.
+// 3. Each pixel combines its own pairs' and its left and lower neighbours'
+//    weights with its colours, in the plain version's order.
+constexpr int AA_STRIP_H = 8;
+constexpr int AA_STRIPS = TILE_H / AA_STRIP_H;
+constexpr int AA_THREADS = 512;
+constexpr int AA_ROWS = AA_THREADS / TILE_W;
+static_assert(AA_ROWS * 2 == AA_STRIP_H, "two pixels a thread");
+constexpr int AA_CW = TILE_W + 1;                     // columns -1..127
+constexpr int AA_CELLS = (AA_STRIP_H + 1) * AA_CW;    // rows -1..7
+constexpr int AA_LIST = 2 * AA_STRIP_H * TILE_W + AA_STRIP_H + TILE_W;
+constexpr float AA_NO_T = -1.0f;   // a blending pair's t lies in [-0, 1]
+// Owner tables: a block looks owners up in its own tile's bin and, for the
+// pairs anchored across its left and lower border, in that tile's bin.
+// Where three tables of the cap fit AA_HASH_SMEM_MAX bytes, each block
+// builds those it needs in shared memory.  Past that (large caps), each
+// tile's table lives once in a global scratch buffer that the wrapper
+// zeroes, shared by the tile's strips and its right and upper neighbours:
+// the first block that needs a table claims it (flag 0 -> 1), builds it and
+// publishes it (-> 2); the others wait for it only after publishing every
+// table they claimed, so no block waits while holding a claim.
+constexpr int AA_TABLES = 3;
+constexpr long long AA_HASH_SMEM_MAX = 96 * 1024;
+constexpr unsigned long long AA_EMPTY = 0ull;   // no id > 0 has 0 bits
+constexpr int AA_DEVICES = 64;   // devices whose shared-memory opt-in is kept
+
+struct AaBlock {
+  int tile, c, ty, tx, strip;
+};
+
+__device__ __forceinline__ AaBlock aa_block(int TY, int TX) {
+  AaBlock b;
+  b.strip = blockIdx.x % AA_STRIPS;
+  b.tile = blockIdx.x / AA_STRIPS;
+  b.tx = b.tile % TX;
+  b.ty = (b.tile / TX) % TY;
+  b.c = b.tile / (TX * TY);
+  return b;
+}
+
+// log2 of an owner table's size: the least power of two >= 2n, at least 32
+__host__ __device__ __forceinline__ int aa_table_bits(int n) {
+  int bits = 5;
+  while ((1 << bits) < 2 * n) ++bits;
+  return bits;
+}
+
+// Global scratch the owner tables need (0 when they fit shared memory): a
+// table of the cap for each tile, then a flag for each (8 bytes, so the
+// buffer stays whole 8-byte words).
+inline long long aa_scratch_bytes(int tiles, int cap) {
+  const long long table = (1ll << aa_table_bits(cap)) * 8;
+  return AA_TABLES * table <= AA_HASH_SMEM_MAX ? 0 : tiles * (table + 8);
+}
+
+// What both antialias kernels take besides their planes.
+struct AaGrid {
+  unsigned long long* tables;   // global owner tables, a tile's each; or null
+  int* flags;                   // 0 free, 1 being built, 2 ready
+  int TY, TX, cap, ts, H, W;    // ts: entries a table region holds
+  float sxs, sys;
+};
+
+// Open-addressing hash table, face id -> lowest live slot of one tile's
+// bin.  An entry packs (id bits << 32 | slot); AA_EMPTY marks a free one.
+// It is at most half full, so every probe ends.
+struct OwnerTable {
+  unsigned long long* e;   // shared or global memory
+  const float* rb;         // the tile's records (cap, 32)
+  int bits;
+};
+
+__device__ __forceinline__ unsigned aa_home(unsigned key, int bits) {
+  return (key * 0x9E3779B1u) >> (32 - bits);     // Fibonacci hashing
+}
+
+__device__ __forceinline__ void table_clear(OwnerTable t) {
+  for (int i = threadIdx.x; i < (1 << t.bits); i += blockDim.x)
+    t.e[i] = AA_EMPTY;
+}
+
+// Slot of face id `id` in the table's bin, -1 for id <= 0 or an absent id.
+// The volatile load reads the atomics' result past L1 for a global table.
+__device__ __forceinline__ int table_find(OwnerTable t, float id) {
+  if (!(id > 0.0f)) return -1;
+  const unsigned key = __float_as_uint(id);
+  const unsigned mask = (1u << t.bits) - 1u;
+  for (unsigned h = aa_home(key, t.bits);; h = (h + 1u) & mask) {
+    const unsigned long long e =
+        *reinterpret_cast<volatile unsigned long long*>(&t.e[h]);
+    if (e == AA_EMPTY) return -1;
+    if ((unsigned)(e >> 32) == key) return (int)(unsigned)e;
+  }
 }
 
 // Owner and other face ids of one pixel pair (background depth +inf).
@@ -57,72 +169,412 @@ __device__ __forceinline__ void aa_common(float fid, float z, float fid_n,
   differs = fid != fid_n;
 }
 
-// Geometry of one owner edge, kept for the backward.
-struct EdgeGeo {
-  float ea, eb, den, ax, ay, bx, by;
+// Edge functions of owner edge e (endpoints e, e+1) at the pixel and at its
+// neighbour (eb directly at the neighbour, not incrementally from ea), and
+// the crossing's denominator, as pallas_core.py:_aa_pair_t computes them.
+// fld: sx0 sy0 sx1 sy1 sx2 sy2 opp1 opp2 opp3 of the owner.
+struct Edge {
+  float ax, ay, bx, by, ex, ey, ea, eb, den;
 };
 
-// Crossing parameter of one pair direction (pallas_core.py:_aa_pair_t).
-// fld: sx0 sy0 sx1 sy1 sx2 sy2 opp1 opp2 opp3 of the owner.
+__device__ __forceinline__ Edge aa_edge(const float* fld, int e, float pax,
+                                        float pay, float d_ex, float d_ey) {
+  Edge g;
+  const int e1 = (e + 1) % 3;
+  g.ax = fld[2 * e];
+  g.ay = fld[2 * e + 1];
+  g.bx = fld[2 * e1];
+  g.by = fld[2 * e1 + 1];
+  g.ex = g.bx - g.ax;
+  g.ey = g.by - g.ay;
+  g.ea = g.ex * (pay - g.ay) - g.ey * (pax - g.ax);
+  g.eb = g.ex * ((pay + d_ey) - g.ay) - g.ey * ((pax + d_ex) - g.ax);
+  const float denom = g.ea - g.eb;
+  g.den = denom == 0.0f ? 1.0f : denom;
+  return g;
+}
+
+// Crossing parameter t of one pair direction (pallas_core.py:_aa_pair_t):
+// the first owner edge that separates the two pixel centres, within its
+// extent, and is a silhouette against `other`.  `take` is that edge, or -1.
 __device__ __forceinline__ float aa_pair_t(const float* fld, float pax,
                                            float pay, float d_ex, float d_ey,
-                                           float other, bool& found,
-                                           bool take[3], EdgeGeo geo[3]) {
+                                           float other, int& take) {
+  take = -1;
   float best_t = 0.0f;
-  found = false;
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
-    const int e1 = (e + 1) % 3;
-    const float ax = fld[2 * e], ay = fld[2 * e + 1];
-    const float bx = fld[2 * e1], by = fld[2 * e1 + 1];
-    const float ex = bx - ax, ey = by - ay;
-    const float ea = ex * (pay - ay) - ey * (pax - ax);
-    // eb directly at the neighbour pixel, not incrementally from ea
-    const float eb = ex * ((pay + d_ey) - ay) - ey * ((pax + d_ex) - ax);
-    const bool separates = (ea > 0.0f) != (eb > 0.0f);
-    const float denom = ea - eb;
-    const float safe_den = denom == 0.0f ? 1.0f : denom;
-    const float t = ea / safe_den;
+    const Edge g = aa_edge(fld, e, pax, pay, d_ex, d_ey);
+    const bool separates = (g.ea > 0.0f) != (g.eb > 0.0f);
+    const float t = g.ea / g.den;
     const float cx = pax + t * d_ex;
     const float cy = pay + t * d_ey;
-    const float along = (cx - ax) * ex + (cy - ay) * ey;
-    const bool within = (along >= 0.0f) && (along <= ex * ex + ey * ey);
+    const float along = (cx - g.ax) * g.ex + (cy - g.ay) * g.ey;
+    const bool within = (along >= 0.0f) && (along <= g.ex * g.ex + g.ey * g.ey);
     const bool silhouette = (other == 0.0f) || (fld[6 + e] != other);
-    const bool valid = separates && within && silhouette;
-    take[e] = valid && !found;
-    if (take[e]) best_t = t;
-    found = found || valid;
-    geo[e] = EdgeGeo{ea, eb, safe_den, ax, ay, bx, by};
+    if (take < 0 && separates && within && silhouette) {
+      take = e;
+      best_t = t;
+    }
   }
   return best_t;
 }
 
-// Slot of face id `key` in this tile's bin, staged through shared memory
-// in chunks of `chunk` ids: keys[i] > 0 are looked up, slots[i] set (or
-// left -1).  All threads of the block must call it.
-template <int N>
-__device__ __forceinline__ void find_slots(const float* __restrict__ rb,
-                                           int n, float* sfid, int chunk,
-                                           const float (&keys)[N],
-                                           int (&slots)[N]) {
-  for (int base = 0; base < n; base += chunk) {
-    const int m = min(chunk, n - base);
-    __syncthreads();
-    for (int j = threadIdx.x; j < m; j += blockDim.x)
-      sfid[j] = rb[(size_t)(base + j) * 32 + 22];
-    __syncthreads();
+// The owner's edge fields (record columns 9-14, 23-25).
+__device__ __forceinline__ void aa_fields(const float* f, float (&fld)[9]) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (keys[i] > 0.0f && slots[i] < 0) {
-        for (int j = 0; j < m; ++j) {
-          if (sfid[j] == keys[i]) {
-            slots[i] = base + j;
-            break;
-          }
-        }
-      }
+  for (int k = 0; k < 6; ++k) fld[k] = f[9 + k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) fld[6 + k] = f[23 + k];
+}
+
+// One pixel pair (a, and its neighbour n at NDC offset (d_ex, d_ey)),
+// anchored at pixel centre (pax, pay).  Returns whether the pair blends:
+// the ids differ, the owner is in the anchor tile's bin (`slot`), and an
+// owner edge crosses (`take`, at `t`).
+__device__ __forceinline__ bool aa_pair(OwnerTable tab, float fa,
+                                        float za, float fn, float zn,
+                                        float pax, float pay, float d_ex,
+                                        float d_ey, float& t, int& slot,
+                                        int& take) {
+  float owner, other;
+  bool differs;
+  aa_common(fa, za, fn, zn, owner, other, differs);
+  slot = differs ? table_find(tab, owner) : -1;
+  if (slot < 0) return false;
+  float fld[9];
+  aa_fields(tab.rb + (size_t)slot * 32, fld);
+  t = aa_pair_t(fld, pax, pay, d_ex, d_ey, other, take);
+  return take >= 0;
+}
+
+// Blend weights of a pair: the anchor's share wa (t < 0.5) and the
+// neighbour's wb (t >= 0.5).
+__device__ __forceinline__ void aa_weights(bool act, float t, float& wa,
+                                           float& wb) {
+  wa = act && t < 0.5f ? 0.5f - t : 0.0f;
+  wb = act && t >= 0.5f ? t - 0.5f : 0.0f;
+}
+
+// A pixel's D channels; D = 4 moves as one 16-byte access.
+template <int D>
+__device__ __forceinline__ void load_px(const float* __restrict__ p, size_t i,
+                                        float (&v)[D]) {
+  if constexpr (D == 4) {
+    const float4 q = reinterpret_cast<const float4*>(p)[i];
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < D; ++c) v[c] = p[i * D + c];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void store_px(float* __restrict__ p, size_t i,
+                                         const float (&v)[D]) {
+  if constexpr (D == 4) {
+    reinterpret_cast<float4*>(p)[i] = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < D; ++c) p[i * D + c] = v[c];
+  }
+}
+
+// The block's owner tables: its own tile's always, the left (k = 1) and the
+// lower (k = 2) tile's where the strip has such a neighbour.  Only the
+// region and the sizes are kept; get(k) rebuilds a table's handle, so none
+// is selected through memory.  Table k of tile t starts k * kstride +
+// t * tstride entries into the region: shared memory holds the block's
+// three tables, the global scratch one table a tile.
+struct AaTables {
+  unsigned long long* region;
+  const float* rec;
+  int tile, TX, cap, kstride, tstride, bits0, bits1, bits2;
+
+  __device__ __forceinline__ int tile_of(int k) const {
+    return tile - (k == 1 ? 1 : 0) - (k == 2 ? TX : 0);
+  }
+  __device__ __forceinline__ OwnerTable get(int k) const {
+    const int t = tile_of(k);
+    return OwnerTable{region + (size_t)k * kstride + (size_t)t * tstride,
+                      rec + (size_t)t * cap * 32,
+                      k == 0 ? bits0 : (k == 1 ? bits1 : bits2)};
+  }
+};
+
+// A pair's code in the list: its anchor's cell * 2 + direction (0 right,
+// 1 down); cells count rows and columns from -1.
+__device__ __forceinline__ int aa_code(int r, int c, int dir) {
+  return ((r + 1) * AA_CW + (c + 1)) * 2 + dir;
+}
+
+struct AaShared {
+  float t[2 * AA_CELLS];            // crossing t by code, or AA_NO_T
+  unsigned short list[AA_LIST];     // codes of the pairs whose ids differ
+  int count, need;                  // list length; neighbour tables needed
+  int mine;                         // tables k this block builds (bit k)
+};
+
+// Appends each of a thread's N codes whose flag holds, with one warp scan
+// and one shared atomic per warp.  All lanes of the warp must call it.
+template <int N>
+__device__ __forceinline__ void aa_push(const bool (&pred)[N],
+                                        const int (&code)[N], AaShared& sh) {
+  const int lane = threadIdx.x & 31;
+  int k = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) k += pred[i] ? 1 : 0;
+  int incl = k;                          // inclusive scan over the warp
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  int base = 0;
+  if (lane == 31 && incl > 0) base = atomicAdd(&sh.count, incl);
+  int pos = __shfl_sync(0xffffffffu, base, 31) + incl - k;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    if (pred[i]) sh.list[pos++] = (unsigned short)code[i];
+}
+
+// Inserts id `id` of slot `s` (skipped for a dead slot); a repeated id
+// keeps its lowest slot, as the plain version's first-match search does.
+__device__ __forceinline__ void table_insert(OwnerTable t, float id, int s) {
+  if (!(id > 0.0f)) return;
+  const unsigned mask = (1u << t.bits) - 1u;
+  const unsigned key = __float_as_uint(id);
+  const unsigned long long v = ((unsigned long long)key << 32) | (unsigned)s;
+  for (unsigned h = aa_home(key, t.bits);; h = (h + 1u) & mask) {
+    const unsigned long long prev = atomicCAS(&t.e[h], AA_EMPTY, v);
+    if (prev == AA_EMPTY) return;
+    if ((unsigned)(prev >> 32) == key) {
+      atomicMin(&t.e[h], v);
+      return;
     }
   }
+}
+
+// Fills table t from its bin's n live slots.  The ids of slots threadIdx.x
+// and threadIdx.x + blockDim.x were loaded early (id0, id1); the kernel
+// reads the rest here.
+__device__ __forceinline__ void table_fill(OwnerTable t, int n, float id0,
+                                           float id1) {
+  const int s0 = threadIdx.x, s1 = threadIdx.x + blockDim.x;
+  if (s0 < n) table_insert(t, id0, s0);
+  if (s1 < n) table_insert(t, id1, s1);
+  for (int s = s1 + blockDim.x; s < n; s += blockDim.x)
+    table_insert(t, t.rb[(size_t)s * 32 + 22], s);
+}
+
+// The ids of a bin's first two slots of this thread (0 past the cap).
+struct IdPair {
+  float a, b;
+};
+
+__device__ __forceinline__ IdPair early_ids(const float* rb, int cap) {
+  const int s0 = threadIdx.x, s1 = threadIdx.x + blockDim.x;
+  return IdPair{s0 < cap ? rb[(size_t)s0 * 32 + 22] : 0.0f,
+                s1 < cap ? rb[(size_t)s1 * 32 + 22] : 0.0f};
+}
+
+// A global owner table's claim (AA_TABLES note), each by one thread: a
+// claim holds where no block had claimed tile t's table; a publish follows
+// a barrier behind the claimer's fill; a wait returns once it is published.
+__device__ __forceinline__ bool aa_claim(int* flags, int t) {
+  return atomicCAS(&flags[t], 0, 1) == 0;
+}
+__device__ __forceinline__ void aa_publish(int* flags, int t) {
+  __threadfence();
+  atomicExch(&flags[t], 2);
+}
+__device__ __forceinline__ void aa_wait(const int* flags, int t) {
+  while (*reinterpret_cast<const volatile int*>(&flags[t]) != 2)
+    __nanosleep(32);
+  __threadfence();
+}
+
+// Phase 1: marks every pair as not blending, lists the strip's differing
+// pairs and makes ready the owner tables the list needs: the own tile's,
+// and the left or lower tile's where a listed pair is anchored there.  The
+// loads are issued before their first use (the neighbours' ids
+// speculatively), so their latencies overlap.  Returns with all of it
+// visible to the block; all threads must call it.
+__device__ __forceinline__ AaTables aa_collect(
+    const float* __restrict__ rec, const int* __restrict__ counts,
+    const float* __restrict__ fidp, unsigned long long* smem,
+    const AaGrid& g, const AaBlock& b, AaShared& sh) {
+  const int TX = g.TX, cap = g.cap, H = g.H, W = g.W;
+  const bool global = g.tables != nullptr;
+  const bool has_l = b.tx > 0;
+  const bool has_b = b.strip == 0 && b.ty > 0;
+  const int n0 = min(counts[b.tile], cap);
+  const int n1 = has_l ? min(counts[b.tile - 1], cap) : 0;
+  const int n2 = has_b ? min(counts[b.tile - TX], cap) : 0;
+  const AaTables T{global ? g.tables : smem, rec, b.tile, TX, cap,
+                   global ? 0 : g.ts, global ? g.ts : 0, aa_table_bits(n0),
+                   aa_table_bits(n1), aa_table_bits(n2)};
+  const IdPair i0 = early_ids(T.get(0).rb, cap);
+  const IdPair i1 = has_l ? early_ids(T.get(1).rb, cap) : IdPair{0.0f, 0.0f};
+  const IdPair i2 = has_b ? early_ids(T.get(2).rb, cap) : IdPair{0.0f, 0.0f};
+
+  // the ids that decide which pairs differ: pixel, right and down neighbour
+  // in two rows, the left neighbour, the lower neighbour
+  const int c = threadIdx.x % TILE_W;
+  const int x = b.tx * TILE_W + c;
+  const int r0 = threadIdx.x / TILE_W;
+  const int y0 = b.ty * TILE_H + b.strip * AA_STRIP_H + r0;
+  float f[2], fr[2], fd[2], fl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int y = y0 + AA_ROWS * i;
+    const size_t row = ((size_t)b.c * H + y) * W;
+    f[i] = fidp[row + x];
+    fr[i] = fidp[row + min(x + 1, W - 1)];
+    fd[i] = fidp[((size_t)b.c * H + min(y + 1, H - 1)) * W + x];
+    fl[i] = c == 0 && has_l ? fidp[row + x - 1] : f[i];
+  }
+  const bool low = r0 == 0 && y0 > 0;
+  const float fb = low ? fidp[((size_t)b.c * H + y0 - 1) * W + x] : f[0];
+
+  for (int i = threadIdx.x; i < 2 * AA_CELLS; i += blockDim.x)
+    sh.t[i] = AA_NO_T;
+  if (threadIdx.x == 0) {
+    sh.count = sh.need = 0;
+    sh.mine = !global || aa_claim(g.flags, b.tile);   // build the own table
+  }
+  if (!global) table_clear(T.get(0));
+  __syncthreads();
+
+  if (sh.mine) table_fill(T.get(0), n0, i0.a, i0.b);
+  const int r1 = r0 + AA_ROWS;
+  const bool pred[7] = {f[0] != fr[0], f[0] != fd[0], fl[0] != f[0],
+                        f[1] != fr[1], f[1] != fd[1], fl[1] != f[1],
+                        fb != f[0]};
+  const int code[7] = {aa_code(r0, c, 0), aa_code(r0, c, 1),
+                       aa_code(r0, -1, 0), aa_code(r1, c, 0),
+                       aa_code(r1, c, 1), aa_code(r1, -1, 0),
+                       aa_code(-1, c, 1)};
+  aa_push(pred, code, sh);
+  const int wants = (pred[2] || pred[5] ? 1 : 0) | (pred[6] && has_b ? 2 : 0);
+  if (wants) atomicOr(&sh.need, wants);
+  __syncthreads();
+
+  const int need = sh.need;    // the same in every thread
+  if (global) {
+    // publish the own table if built here, claim and build the neighbour
+    // tables needed that no block has claimed, publish them, and only then
+    // wait for every table the block needs
+    if (threadIdx.x == 0) {
+      if (sh.mine) aa_publish(g.flags, b.tile);
+      sh.mine = ((need & 1) && aa_claim(g.flags, T.tile_of(1)) ? 1 : 0) |
+                ((need & 2) && aa_claim(g.flags, T.tile_of(2)) ? 2 : 0);
+    }
+    __syncthreads();
+    const int mine = sh.mine;
+    if (mine & 1) table_fill(T.get(1), n1, i1.a, i1.b);
+    if (mine & 2) table_fill(T.get(2), n2, i2.a, i2.b);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      if (mine & 1) aa_publish(g.flags, T.tile_of(1));
+      if (mine & 2) aa_publish(g.flags, T.tile_of(2));
+      aa_wait(g.flags, b.tile);
+      if (need & 1) aa_wait(g.flags, T.tile_of(1));
+      if (need & 2) aa_wait(g.flags, T.tile_of(2));
+    }
+    __syncthreads();
+  } else if (need) {
+    if (need & 1) table_clear(T.get(1));
+    if (need & 2) table_clear(T.get(2));
+    __syncthreads();
+    if (need & 1) table_fill(T.get(1), n1, i1.a, i1.b);
+    if (need & 2) table_fill(T.get(2), n2, i2.a, i2.b);
+    __syncthreads();
+  }
+  return T;
+}
+
+// One listed pair, decoded: its anchor (r, c) in the strip, direction, the
+// anchor and neighbour pixels, the anchor's NDC centre and the owner table
+// of the anchor's tile (1: left, 2: lower, 0: this one).
+struct AaItem {
+  int code, r, c, dir, table;
+  size_t p, pn;
+  float pax, pay, d_ex, d_ey;
+};
+
+__device__ __forceinline__ AaItem aa_item(int code, const AaBlock& b, int H,
+                                          int W, float sxs, float sys) {
+  AaItem q;
+  q.code = code;
+  q.dir = code & 1;
+  const int cell = code >> 1;
+  q.r = cell / AA_CW - 1;
+  q.c = cell % AA_CW - 1;
+  q.table = q.c < 0 ? 1 : (q.r < 0 && b.strip == 0 ? 2 : 0);
+  const int row = b.strip * AA_STRIP_H + q.r;       // in the tile
+  q.p = ((size_t)b.c * H + b.ty * TILE_H + row) * W + b.tx * TILE_W + q.c;
+  q.pn = q.p + (q.dir ? W : 1);   // listed pairs differ: no edge pixel
+  q.pax = pixel_x(b.tx, q.c, sxs);
+  q.pay = pixel_y(b.ty, row, sys);
+  q.d_ex = q.dir ? 0.0f : sxs;
+  q.d_ey = q.dir ? sys : 0.0f;
+  return q;
+}
+
+// The blend weights that a pixel (r, c) of the strip combines, from the
+// grid of crossings: its own right and down pairs' (h, v), the right pair
+// of its left neighbour (l) and the down pair of its lower neighbour (b).
+struct AaWeights {
+  float wa_h, wb_h, wa_v, wb_v, wa_l, wb_l, wa_b, wb_b;
+};
+
+__device__ __forceinline__ AaWeights aa_weights_at(const AaShared& sh, int r,
+                                                   int c) {
+  AaWeights w;
+  float t = sh.t[aa_code(r, c, 0)];
+  aa_weights(t != AA_NO_T, t, w.wa_h, w.wb_h);
+  t = sh.t[aa_code(r, c, 1)];
+  aa_weights(t != AA_NO_T, t, w.wa_v, w.wb_v);
+  t = sh.t[aa_code(r, c - 1, 0)];
+  aa_weights(t != AA_NO_T, t, w.wa_l, w.wb_l);
+  t = sh.t[aa_code(r - 1, c, 1)];
+  aa_weights(t != AA_NO_T, t, w.wa_b, w.wb_b);
+  return w;
+}
+
+// Launches antialias kernel K(planes..., g) over the C views of g's tiles:
+// places the owner tables (shared memory, or `scratch`, zeroed, of
+// aa_scratch_bytes) and opts K in to the shared memory they take.
+template <auto K, typename... Planes>
+int aa_launch(AaGrid g, int C, void* scratch, cudaStream_t stream,
+              Planes... planes) {
+  const int tiles = C * g.TY * g.TX;
+  g.ts = 1 << aa_table_bits(g.cap);
+  const bool global = aa_scratch_bytes(tiles, g.cap) > 0;
+  if (global && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  g.tables = global ? static_cast<unsigned long long*>(scratch) : nullptr;
+  g.flags = global ? reinterpret_cast<int*>(g.tables + (size_t)tiles * g.ts)
+                   : nullptr;
+  const size_t smem = global ? 0 : (size_t)AA_TABLES * g.ts * 8;
+  if (smem + sizeof(AaShared) > 48 * 1024) {
+    // the opt-in is per kernel and device and costs microseconds: made once
+    static size_t opted[AA_DEVICES] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess && (dev >= AA_DEVICES || opted[dev] < smem)) {
+      e = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e == cudaSuccess && dev < AA_DEVICES) opted[dev] = smem;
+    }
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (tiles > 0)
+    K<<<tiles * AA_STRIPS, AA_THREADS, smem, stream>>>(planes..., g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace ls

@@ -24,6 +24,8 @@ Layouts are the JAX package's: records (C, TY, TX, cap, 32), counts
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -46,7 +48,11 @@ LAUNCHES = {"raster_fwd": 0, "aa_fwd": 0, "raster_bwd": 0, "aa_bwd": 0}
 
 def _scales(resolution):
     """float32 NDC pixel pitch (2/W, 2/H), as the kernels receive it."""
-    height, width = resolution
+    return _pitch(*resolution)
+
+
+@functools.lru_cache(maxsize=64)
+def _pitch(height, width):
     return float(np.float32(2.0 / width)), float(np.float32(2.0 / height))
 
 
@@ -111,6 +117,8 @@ def _shift_down_ch(x):
 
 
 def _device_kind(*tensors) -> str:
+    if all(t.is_cuda for t in tensors):     # the fast answer on the card
+        return "cuda"
     kinds = {t.device.type for t in tensors}
     if len(kinds) != 1:
         raise ValueError(f"tensors on several devices: {kinds}")
@@ -393,6 +401,35 @@ def _aa_directions(rec, counts, fid, z, resolution):
     return out
 
 
+def _aa_checks(name, rec, color, resolution, *planes):
+    """What the antialias kernels take beyond _check_cuda_inputs: tiles that
+    match the planes, 3 or 4 channels (silhouette or shaded), 16-byte
+    aligned colour planes (D = 4 moves as float4)."""
+    C, ty, tx = rec.shape[:3]
+    D = color.shape[-1]
+    if tuple(color.shape[:3]) != (C, ty * TILE_H, tx * TILE_W) \
+            or tuple(resolution) != tuple(color.shape[1:3]):
+        raise ValueError(f"{name}: colour {tuple(color.shape)} does not "
+                         f"match {ty}x{tx} tiles at {tuple(resolution)}")
+    if D not in (3, 4):
+        raise ValueError(f"{name}: {D} channels; the kernel takes 3 or 4")
+    if D == 4 and any(t.data_ptr() % 16 for t in (color, *planes)):
+        raise ValueError(f"{name}: 4-channel planes must be 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=64)
+def _aa_scratch_bytes(tiles, cap):
+    from .. import _cuda
+    return _cuda.library("aa_fwd", "ls_aa_scratch")(tiles, cap)
+
+
+def _aa_scratch(C, ty, tx, cap, device):
+    """The zeroed global scratch of the owner tables where shared memory
+    cannot hold them (large caps): one table a tile; None when it can."""
+    n = _aa_scratch_bytes(C * ty * tx, cap)
+    return torch.zeros(n // 8, dtype=torch.int64, device=device) if n else None
+
+
 def aa_fwd(rec_bwd_b, counts_b, fid, z, color, resolution):
     """Antialias forward: color (C, H, W, D) → antialiased (C, H, W, D).
     fid and z (C, H, W) are the forward rasterizer's outputs."""
@@ -401,18 +438,20 @@ def aa_fwd(rec_bwd_b, counts_b, fid, z, color, resolution):
     from .. import _cuda
     _check_cuda_inputs("aa_fwd", rec=rec_bwd_b, counts=counts_b, fid=fid,
                        z=z, color=color)
+    out = torch.empty_like(color)
+    _aa_checks("aa_fwd", rec_bwd_b, color, resolution, out)
     C, ty, tx, cap, _ = rec_bwd_b.shape
     height, width, D = color.shape[1:]
-    planes = torch.empty((3, *color.shape), dtype=torch.float32,
-                         device=color.device)
+    scratch = _aa_scratch(C, ty, tx, cap, color.device)
     sxs, sys_ = _scales(resolution)
     err = _cuda.library("aa_fwd")(
         rec_bwd_b.data_ptr(), counts_b.data_ptr(), fid.data_ptr(),
-        z.data_ptr(), color.data_ptr(), planes.data_ptr(),
+        z.data_ptr(), color.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
         C, ty, tx, cap, height, width, D, sxs, sys_, _stream())
     _cuda.check("aa_fwd", err)
     LAUNCHES["aa_fwd"] += 1
-    return _aa_fwd_combine(planes[0], planes[1], planes[2])
+    return out
 
 
 def _aa_fwd_combine(out, db_h, db_v):
@@ -449,21 +488,25 @@ def aa_bwd(rec_bwd_b, counts_b, fid, z, color, d_out, resolution):
     from .. import _cuda
     _check_cuda_inputs("aa_bwd", rec=rec_bwd_b, counts=counts_b, fid=fid,
                        z=z, color=color, d_out=d_out)
+    d_color = torch.empty_like(color)
+    _aa_checks("aa_bwd", rec_bwd_b, color, resolution, d_out, d_color)
+    if d_out.shape != color.shape:
+        raise ValueError(f"aa_bwd: d_out {tuple(d_out.shape)} is not the "
+                         f"colour's shape {tuple(color.shape)}")
     C, ty, tx, cap, _ = rec_bwd_b.shape
     height, width, D = color.shape[1:]
-    planes = torch.empty((3, *color.shape), dtype=torch.float32,
-                         device=color.device)
     dslot = torch.zeros((C, ty, tx, cap, 8), dtype=torch.float32,
                         device=color.device)
+    scratch = _aa_scratch(C, ty, tx, cap, color.device)
     sxs, sys_ = _scales(resolution)
     err = _cuda.library("aa_bwd")(
         rec_bwd_b.data_ptr(), counts_b.data_ptr(), fid.data_ptr(),
-        z.data_ptr(), color.data_ptr(), d_out.data_ptr(), planes.data_ptr(),
-        dslot.data_ptr(), C, ty, tx, cap, height, width, D, sxs, sys_,
-        _stream())
+        z.data_ptr(), color.data_ptr(), d_out.data_ptr(), d_color.data_ptr(),
+        dslot.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        C, ty, tx, cap, height, width, D, sxs, sys_, _stream())
     _cuda.check("aa_bwd", err)
     LAUNCHES["aa_bwd"] += 1
-    return _aa_bwd_combine(planes[0], d_out, planes[1], planes[2]), dslot
+    return d_color, dslot
 
 
 def _aa_bwd_combine(acc, d_out, db_h, db_v):

@@ -1,0 +1,87 @@
+"""The two properties of the per-tile bins that the antialias kernels rely
+on, at 2 views of 256×256 (two tiles each way) with icosphere-3, the bins of
+``setup_and_bin`` and the ids and depths of ``raster_fwd_plain``.
+
+* Every pixel pair whose face ids differ has its owner (the nearer face) in
+  the bin of the anchor's tile and in the bin of the neighbour's tile.  So
+  the pairs that cross a tile border, anchored in column x0 − 1 or row
+  y0 − 1 of a tile or crossing its top or right border, find their owner on
+  both sides (the bins test the bbox expanded by one pixel on both sides).
+* No face id occurs twice among a tile's live slots.
+"""
+import numpy as np
+import pytest
+import torch
+
+from largesteps_torch.io.synth import make_scene
+from largesteps_torch.render import kernels as K
+from largesteps_torch.render.antialias import face_adjacency
+from largesteps_torch.render.camera import project
+from largesteps_torch.render.pipeline import (check_bin_overflow,
+                                              setup_and_bin, suggest_cap)
+from largesteps_torch.render.renderer import Renderer
+
+RES = (256, 256)
+
+
+@pytest.fixture(scope="module")
+def binned():
+    scene = make_scene(source=("icosphere", 3), target=("gourd", 2),
+                       n_views=2, res=RES[0])
+    f = scene["mesh-source"]["faces"]
+    faces = torch.as_tensor(f.astype(np.int64))
+    opp = torch.as_tensor(face_adjacency(f).astype(np.int64))
+    v_ndc = project(torch.as_tensor(scene["mesh-source"]["vertices"]),
+                    Renderer(scene, device="cpu").mvps)
+    cap = suggest_cap(check_bin_overflow(v_ndc, faces, RES))
+    attrs = torch.zeros((v_ndc.shape[1], 3))
+    rfb, rbb, bins, counts = setup_and_bin(v_ndc, faces, attrs, opp, *RES,
+                                           cap)
+    fwd = K.raster_fwd_plain(rfb, counts, RES)
+    return {"bins": bins, "counts": counts, "fid": fwd[3], "z": fwd[2],
+            "cap": cap}
+
+
+def _tile_sets(bins, counts):
+    """Face ids (1-based) of each (camera, ty, tx) bin's live slots."""
+    C, TY, TX, cap = bins.shape
+    out = {}
+    for c in range(C):
+        for ty in range(TY):
+            for tx in range(TX):
+                n = int(counts[c, ty, tx])
+                out[c, ty, tx] = (bins[c, ty, tx, :n] + 1).tolist()
+    return out
+
+
+def test_pair_owners_are_in_both_tiles_bins(binned):
+    fid, z = binned["fid"], binned["z"]
+    assert int(binned["counts"].max()) < binned["cap"]      # no overflow
+    sets = {k: set(v) for k, v in
+            _tile_sets(binned["bins"], binned["counts"]).items()}
+    C, H, W = fid.shape
+    checked = {"right": 0, "down": 0, "border": 0}
+    for name, nb in (("right", K._shift_left), ("down", K._shift_up)):
+        own, _, dif = K._aa_common(fid, z, nb(fid), nb(z))
+        c, y, x = torch.nonzero(dif & (own > 0), as_tuple=True)
+        yn = y + (name == "down")
+        xn = x + (name == "right")
+        for i in range(c.numel()):
+            o = int(own[c[i], y[i], x[i]])
+            ci = int(c[i])
+            anchor = (ci, int(y[i]) // K.TILE_H, int(x[i]) // K.TILE_W)
+            neigh = (ci, int(yn[i]) // K.TILE_H, int(xn[i]) // K.TILE_W)
+            assert o in sets[anchor], (name, anchor, o)
+            assert o in sets[neigh], (name, neigh, o)
+            checked[name] += 1
+            checked["border"] += anchor != neigh
+    # pairs cross both the vertical and the horizontal tile border
+    assert checked["right"] > 1000 and checked["down"] > 1000
+    assert checked["border"] > 100, checked
+
+
+def test_no_face_twice_in_a_tile(binned):
+    sets = _tile_sets(binned["bins"], binned["counts"])
+    assert sum(len(v) for v in sets.values()) > 1000
+    for key, ids in sets.items():
+        assert len(ids) == len(set(ids)), key

@@ -8,17 +8,25 @@ that has only PyTorch with CUDA:
 (``--noconftest`` skips ``tests/conftest.py``, which sets up JAX.)  Without
 a card they skip: the kernels have no CPU mode.
 
-Inputs: icosphere-4 (5,120 faces) in one 128×128 view, so each of the four
-tiles holds over a thousand faces and the kernels' shared-memory chunk loops
-run more than once.  ``cap`` is the fitted cap (the per-slot tables sit in
-shared memory) or 9216 (the tables do not fit, and the kernels accumulate
-with global atomics).  Attributes, colours and cotangents come from a numpy
-seed.
+Inputs: icosphere-4 (5,120 faces) in one view, attributes, colours and
+cotangents from a numpy seed.
 
-Tolerances: face and slot ids exact, the other forward planes 1e-6 absolute
-(the library is built with ``-fmad=false`` and repeats the plain version's
-operations in order); per-slot sums 1e-5 × max|sum| (atomics add in another
-order than ``index_add_``).
+* ``cuda_case`` (all four kernels): 128×128 at the fitted cap (raster_bwd's
+  per-slot table and the antialias owner tables sit in shared memory) and at
+  cap 9216 (neither fits: global atomics, and one owner table a tile in a
+  global scratch); 256×256 at the fitted cap and at cap 9216, two tiles each
+  way, so antialias pairs cross tile borders in both directions and, at cap
+  9216, blocks share their neighbours' global tables.
+* ``aa_bins`` (the antialias kernels) at 256×256, bins built to stress the
+  owner lookup: every face id relabelled so that all collide in the owner
+  tables' hash (``aa_home`` in ``csrc/common.cuh``, mirrored below); bins
+  that overflow (cap 48, and counts passed above cap); every bin holding
+  each face twice (the lowest slot must win).
+
+Tolerances: face and slot ids exact, the other forward planes and d_colour
+1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
+plain version's operations in order); per-slot sums 1e-5 × max|sum| (atomics
+add in another order than ``index_add_``).
 """
 import numpy as np
 import pytest
@@ -32,42 +40,100 @@ from largesteps_torch.render.pipeline import (check_bin_overflow,
                                               setup_and_bin, suggest_cap)
 from largesteps_torch.render.renderer import Renderer
 
-H = W = 128
-RES = (H, W)
+HASH_BITS = 11        # the widest owner table of these cases (n <= 1024)
 
 
-@pytest.fixture(params=["fit", 9216])
-def cuda_case(request):
+def _aa_home(ids, bits):
+    """Home slot of face ids in an owner table of 2**bits entries
+    (``csrc/common.cuh:aa_home``: Fibonacci hashing of the float's bits)."""
+    key = np.asarray(ids, np.float32).view(np.uint32).astype(np.uint64)
+    return ((key * np.uint64(0x9E3779B1)) & np.uint64(0xFFFFFFFF)) \
+        >> np.uint64(32 - bits)
+
+
+def _colliding_ids(count):
+    """``count`` float-exact integers that all hash to home 0 in every owner
+    table of up to 2**HASH_BITS entries."""
+    cand = np.arange(1, 1 << 24, dtype=np.float32)
+    ids = cand[_aa_home(cand, HASH_BITS) == 0]
+    assert ids.size >= count
+    return ids[:count]
+
+
+def _build(res, cap_rule):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
     scene = make_scene(source=("icosphere", 4), target=("gourd", 2),
-                       n_views=1, res=H)
+                       n_views=1, res=res)
     f = scene["mesh-source"]["faces"]
     faces = torch.as_tensor(f.astype(np.int64), device=dev)
     opp = torch.as_tensor(face_adjacency(f).astype(np.int64), device=dev)
     mvps = Renderer(scene, device=dev).mvps
     v_ndc = project(torch.as_tensor(scene["mesh-source"]["vertices"],
                                     device=dev), mvps)
-    occ = check_bin_overflow(v_ndc, faces, RES)
-    cap = suggest_cap(occ) if request.param == "fit" else request.param
+    occ = check_bin_overflow(v_ndc, faces, (res, res))
+    cap = suggest_cap(occ) if cap_rule == "fit" else cap_rule
     rng = np.random.default_rng(0)
     as_t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
     attrs = as_t(rng.normal(size=(v_ndc.shape[1], 3)))
-    rfb, rbb, bins, counts = setup_and_bin(v_ndc, faces, attrs, opp, H, W,
-                                           cap)
-    fwd = [p.contiguous() for p in K.raster_fwd_plain(rfb, counts, RES)]
+    rfb, rbb, bins, counts = setup_and_bin(v_ndc, faces, attrs, opp, res,
+                                           res, cap)
+    fwd = [p.contiguous() for p in K.raster_fwd_plain(rfb, counts,
+                                                      (res, res))]
     fid = fwd[3]
     cov = (fid > 0)[..., None]
     col4 = torch.where(cov, torch.cat([torch.stack(fwd[5:8], -1),
                                        cov.float()], -1),
-                       as_t(rng.uniform(size=(1, H, W, 4))))
-    return {"occ": occ, "cap": cap, "rfb": rfb, "rbb": rbb,
-            "counts": counts, "fwd": fwd, "col4": col4.contiguous(),
-            "d_out": as_t(rng.normal(size=(1, H, W, 4))),
-            "d_col": as_t(rng.normal(size=(1, H, W, 3))),
-            "d_u": as_t(rng.normal(size=(1, H, W))),
-            "d_v": as_t(rng.normal(size=(1, H, W)))}
+                       as_t(rng.uniform(size=(1, res, res, 4))))
+    return {"res": (res, res), "occ": occ, "cap": cap, "rfb": rfb,
+            "rbb": rbb, "counts": counts, "fwd": fwd,
+            "col4": col4.contiguous(),
+            "d_out": as_t(rng.normal(size=(1, res, res, 4))),
+            "d_col": as_t(rng.normal(size=(1, res, res, 3))),
+            "d_u": as_t(rng.normal(size=(1, res, res))),
+            "d_v": as_t(rng.normal(size=(1, res, res)))}
+
+
+@pytest.fixture(params=[(128, "fit"), (128, 9216), (256, "fit"),
+                        (256, 9216)],
+                ids=["fit", "9216", "256", "256_9216"])
+def cuda_case(request):
+    return _build(*request.param)
+
+
+@pytest.fixture(params=["collide", "overflow", "duplicate"])
+def aa_bins(request):
+    if request.param == "overflow":
+        c = _build(256, 48)
+        assert c["occ"] > 48
+        c["counts"] = (c["counts"] + 50).contiguous()    # above cap as well
+        return c
+    c = _build(256, "fit")
+    rbb, counts = c["rbb"], c["counts"]
+    if request.param == "collide":
+        assert 2 * int(counts.max()) <= 2 ** HASH_BITS
+        n_faces = int(rbb[..., 22].max())
+        table = torch.zeros(n_faces + 1, device=rbb.device)
+        table[1:] = torch.as_tensor(_colliding_ids(n_faces),
+                                    device=rbb.device)
+        relabel = lambda a: table[a.long()]              # 0 stays 0
+        rbb = rbb.clone()
+        for k in (22, 23, 24, 25):                       # fid and opp ids
+            rbb[..., k] = relabel(rbb[..., k])
+        c["fwd"][3] = relabel(c["fwd"][3]).contiguous()
+    else:
+        # each tile's live slots, then the same faces again
+        n = int(counts.max())
+        idx = torch.arange(2 * n, device=rbb.device)
+        cnt = counts[..., None].long()
+        src = torch.where(idx < cnt, idx, idx - cnt).clamp(max=n - 1)
+        rbb = torch.gather(rbb[..., :n, :], 3,
+                           src[..., None].expand(*src.shape, 32))
+        rbb = torch.where((idx < 2 * cnt)[..., None], rbb, 0.0)
+        counts = 2 * counts
+    c["rbb"], c["counts"] = rbb.contiguous(), counts.contiguous()
+    return c
 
 
 def _max_abs(a, b):
@@ -79,7 +145,7 @@ def test_gpu_raster_fwd(cuda_case):
     c = cuda_case
     assert int(c["counts"].max()) > 256          # several smem chunks
     n0 = K.LAUNCHES["raster_fwd"]
-    got = K.raster_fwd(c["rfb"], c["counts"], RES)
+    got = K.raster_fwd(c["rfb"], c["counts"], c["res"])
     torch.cuda.synchronize()
     assert K.LAUNCHES["raster_fwd"] == n0 + 1
     want = c["fwd"]
@@ -89,26 +155,44 @@ def test_gpu_raster_fwd(cuda_case):
         assert _max_abs(a, b) < 1e-6
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("D", [4, 3])            # shaded, silhouette
-def test_gpu_aa_fwd(cuda_case, D):
-    c = cuda_case
+def _check_aa_fwd(c, D):
     fid, z = c["fwd"][3], c["fwd"][2]
     col = c["col4"][..., :D].contiguous()
     n0 = K.LAUNCHES["aa_fwd"]
-    got = K.aa_fwd(c["rbb"], c["counts"], fid, z, col, RES)
+    got = K.aa_fwd(c["rbb"], c["counts"], fid, z, col, c["res"])
     torch.cuda.synchronize()
     assert K.LAUNCHES["aa_fwd"] == n0 + 1
-    want = K.aa_fwd_plain(c["rbb"], c["counts"], fid, z, col, RES)
+    want = K.aa_fwd_plain(c["rbb"], c["counts"], fid, z, col, c["res"])
     assert _max_abs(want, col) > 1e-2            # pairs blend
     assert _max_abs(got, want) < 1e-6
+
+
+def _check_aa_bwd(c, D):
+    args = (c["rbb"], c["counts"], c["fwd"][3], c["fwd"][2],
+            c["col4"][..., :D].contiguous(),
+            c["d_out"][..., :D].contiguous(), c["res"])
+    n0 = K.LAUNCHES["aa_bwd"]
+    dc, ds = K.aa_bwd(*args)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["aa_bwd"] == n0 + 1
+    dcw, dsw = K.aa_bwd_plain(*args)
+    assert float(dsw.abs().max()) > 0.0
+    assert _max_abs(dc, dcw) < 1e-6
+    assert _max_abs(ds, dsw) < 1e-5 * float(dsw.abs().max())
+    assert bool((ds[..., 6:] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4, 3])            # shaded, silhouette
+def test_gpu_aa_fwd(cuda_case, D):
+    _check_aa_fwd(cuda_case, D)
 
 
 @pytest.mark.gpu
 def test_gpu_raster_bwd(cuda_case):
     c = cuda_case
     args = (c["rbb"], c["counts"], c["fwd"][4], c["d_col"], c["d_u"],
-            c["d_v"], RES)
+            c["d_v"], c["res"])
     n0 = K.LAUNCHES["raster_bwd"]
     got = K.raster_bwd(*args)
     torch.cuda.synchronize()
@@ -121,16 +205,38 @@ def test_gpu_raster_bwd(cuda_case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [4, 3])            # shaded, silhouette
 def test_gpu_aa_bwd(cuda_case, D):
-    c = cuda_case
-    args = (c["rbb"], c["counts"], c["fwd"][3], c["fwd"][2],
-            c["col4"][..., :D].contiguous(),
-            c["d_out"][..., :D].contiguous(), RES)
-    n0 = K.LAUNCHES["aa_bwd"]
-    dc, ds = K.aa_bwd(*args)
-    torch.cuda.synchronize()
-    assert K.LAUNCHES["aa_bwd"] == n0 + 1
-    dcw, dsw = K.aa_bwd_plain(*args)
-    assert float(dsw.abs().max()) > 0.0
-    assert _max_abs(dc, dcw) < 1e-6
-    assert _max_abs(ds, dsw) < 1e-5 * float(dsw.abs().max())
-    assert bool((ds[..., 6:] == 0).all())
+    _check_aa_bwd(cuda_case, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4, 3])
+def test_gpu_aa_fwd_bins(aa_bins, D):
+    _check_aa_fwd(aa_bins, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4, 3])
+def test_gpu_aa_bwd_bins(aa_bins, D):
+    _check_aa_bwd(aa_bins, D)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles,cap,table", [
+    (208, 768, 0), (208, 2048, 0),            # three tables fit 96 KB
+    (208, 2049, 2 ** 13 * 8), (208, 9216, 2 ** 15 * 8),
+    (832, 8192, 2 ** 14 * 8)])                # 13 views at 512²
+def test_gpu_aa_scratch_is_one_table_a_tile(tiles, cap, table):
+    """Past shared memory, the owner tables take one table of the cap and
+    one 8-byte flag a tile, whatever the number of strips."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    want = tiles * (table + 8) if table else 0
+    assert K._aa_scratch_bytes(tiles, cap) == want
+
+
+def test_colliding_ids_share_a_home():
+    """The relabelling of the ``collide`` case does what it says (CPU)."""
+    ids = _colliding_ids(5120)
+    assert np.unique(ids).size == ids.size and np.all(ids == np.round(ids))
+    for bits in range(5, HASH_BITS + 1):
+        assert np.all(_aa_home(ids, bits) == 0)

@@ -191,3 +191,19 @@ def test_wrappers_reject_other_devices(case):
     with pytest.raises(ValueError, match="device"):
         K.raster_fwd(T(case["rfb"]).to("meta"), T(case["counts"]).to("meta"),
                      RES)
+
+
+@pytest.mark.parametrize("bad", ["channels", "two_channels", "tiles",
+                                 "aligned"])
+def test_aa_checks_reject_what_the_kernels_do_not_take(bad):
+    """The antialias kernels take 3 or 4 channels on planes that match the
+    bins' tiles, 16-byte aligned when D = 4 (checked before any launch)."""
+    rec = torch.zeros((1, 4, 1, 8, 32))
+    D = {"channels": 5, "two_channels": 2}.get(bad, 4)
+    H = 96 if bad == "tiles" else 128
+    color = torch.zeros((1, H, 128, D))
+    if bad == "aligned":
+        color = torch.zeros(1 * 128 * 128 * 4 + 1)[1:].reshape(1, 128, 128, 4)
+    with pytest.raises(ValueError):
+        K._aa_checks("aa_fwd", rec, color, (H, 128))
+    K._aa_checks("aa_fwd", rec, torch.zeros((1, 128, 128, 3)), (128, 128))
