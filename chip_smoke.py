@@ -50,7 +50,8 @@ COLS_AA_OUT = 6          # aa_bwd: the per-slot endpoint sums
 F32 = 4
 # kernels redesigned for the H100 after their first port, and the PR that
 # did it (their earlier times: PERF.md)
-REDESIGNED = {"aa_fwd": "PR 2", "aa_bwd": "PR 2"}
+REDESIGNED = {"aa_fwd": "PR 2", "aa_bwd": "PR 2", "raster_fwd": "PR 3",
+              "raster_bwd": "PR 3"}
 
 
 def emit(obj):
@@ -169,16 +170,26 @@ def phase_card():
     return name, line, ptxas
 
 
-def ran(info, channels):
+def ran(info, key):
     """ptxas's registers, stack and spills of the entry that ran: the only
-    one, or the instantiation for ``channels`` colour channels."""
-    entries = [e for e in info if len(info) == 1 or f"ILi{channels}E" in e]
+    one, or the instantiation whose mangled name holds ``key``."""
+    entries = [e for e in info if len(info) == 1 or key in e]
     if len(entries) != 1:
         raise RuntimeError(f"no single ptxas entry among {sorted(info)}")
     r = info[entries[0]]
     return {"registers": r["registers"], "stack_bytes": r["stack_bytes"],
             "spill_stores": r["spill_stores"],
             "spill_loads": r["spill_loads"]}
+
+
+def instance(name, cap, channels):
+    """The template argument, as mangled, of the kernel ``name`` that runs
+    at ``cap`` with ``channels`` colour channels: the antialias kernels'
+    channels; raster_bwd's whether its per-slot table fits shared memory
+    (``RB_TABLE_MAX`` in ``csrc/common.cuh``)."""
+    if name == "raster_bwd":
+        return "ILb1E" if cap * 18 * F32 <= 200 * 1024 else "ILb0E"
+    return f"ILi{channels}E"
 
 
 def main_path_inputs():
@@ -300,7 +311,8 @@ def phase_kernels(card, ptxas):
             "library_ms": None}
         if name in REDESIGNED:
             table[name].update({"redesigned": REDESIGNED[name],
-                                "ptxas": ran(ptxas[name], D)})
+                                "ptxas": ran(ptxas[name], instance(name, cap,
+                                                                   D))})
         emit({"phase": "kernel", "name": name, "passed": passed,
               "max_abs_err": errs, "max_rel_err": [
                   e / s if s else 0.0 for e, s in zip(errs, scales)],

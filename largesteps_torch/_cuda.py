@@ -42,8 +42,8 @@ _F = ctypes.c_float
 # ``name``'s launcher is ``ls_<name>`` and returns a cudaError_t
 _SIGNATURES = {
     "ls_raster_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P], _I),
-    "ls_raster_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _F, _F, _P], _I),
+    "ls_raster_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                       _F, _P], _I),
     "ls_aa_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _F, _F, _P], _I),
     "ls_aa_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

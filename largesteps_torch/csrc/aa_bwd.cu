@@ -77,7 +77,7 @@ aa_bwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
   extern __shared__ unsigned long long smem[];   // the owner tables
   __shared__ ls::AaShared sh;
   const int H = g.H, W = g.W;
-  const ls::AaBlock b = ls::aa_block(g.TY, g.TX);
+  const ls::StripBlock b = ls::strip_block(g.TY, g.TX);
   float* ob = dslot + (size_t)b.tile * g.cap * 8;
   const ls::AaTables T = ls::aa_collect(rec, counts, fidp, smem, g, b, sh);
 
@@ -104,7 +104,7 @@ aa_bwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
 #pragma unroll 1
   for (int i = 0; i < 2; ++i) {
     const int r = threadIdx.x / ls::TILE_W + ls::AA_ROWS * i;
-    const int y = b.ty * ls::TILE_H + b.strip * ls::AA_STRIP_H + r;
+    const int y = b.ty * ls::TILE_H + b.strip * ls::STRIP_H + r;
     const size_t p = ((size_t)b.c * H + y) * W + x;
     const ls::AaWeights w = ls::aa_weights_at(sh, r, c);
     float d0[D], dn[D], o[D];

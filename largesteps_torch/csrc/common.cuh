@@ -2,9 +2,10 @@
 //
 // Layouts are the JAX package's: records (C, TY, TX, cap, 32) float32,
 // counts (C, TY, TX) int32, planes (C, H, W) float32 with row 0 at the image
-// bottom, colours (C, H, W, D), 32x128 pixel tiles.  One block of the
-// raster kernels works on one (camera, tile); blockIdx.x = (c * TY + ty) *
-// TX + tx.  The antialias kernels' grid is below.
+// bottom, colours (C, H, W, D), 32x128 pixel tiles.  raster_bwd's blocks
+// each work on one (camera, tile): blockIdx.x = (c * TY + ty) * TX + tx.
+// The other kernels' blocks each work on one strip of STRIP_H rows of a
+// tile: blockIdx.x = tile * STRIPS + strip.
 //
 // Every expression is written in the operation order of the plain PyTorch
 // version in render/kernels.py, and the library is built with -fmad=false,
@@ -17,13 +18,10 @@ namespace ls {
 
 constexpr int TILE_H = 32;
 constexpr int TILE_W = 128;
-constexpr int TILE_P = TILE_H * TILE_W;
-constexpr int THREADS = 256;
-constexpr int PPT = TILE_P / THREADS;        // pixels per thread
+constexpr int STRIP_H = 8;
+constexpr int STRIPS = TILE_H / STRIP_H;
 constexpr float BIG = 3.4e38f;
-// dynamic shared memory a per-slot table may take before a kernel falls
-// back to accumulating straight into global memory
-constexpr int SMEM_TABLE_MAX = 200 * 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Tile {
   int b, c, ty, tx;
@@ -38,6 +36,20 @@ __device__ __forceinline__ Tile tile_of_block(int TY, int TX) {
   return t;
 }
 
+struct StripBlock {
+  int tile, c, ty, tx, strip;
+};
+
+__device__ __forceinline__ StripBlock strip_block(int TY, int TX) {
+  StripBlock b;
+  b.strip = blockIdx.x % STRIPS;
+  b.tile = blockIdx.x / STRIPS;
+  b.tx = b.tile % TX;
+  b.ty = (b.tile / TX) % TY;
+  b.c = b.tile / (TX * TY);
+  return b;
+}
+
 // NDC centre of pixel column col (row) of tile tx (ty); col and row may
 // reach one pixel past the tile, the sums stay exact
 __device__ __forceinline__ float pixel_x(int tx, int col, float sxs) {
@@ -47,13 +59,102 @@ __device__ __forceinline__ float pixel_y(int ty, int row, float sys) {
   return (((float)(ty * TILE_H) + (float)row) + 0.5f) * sys - 1.0f;
 }
 
+// 16 bytes of a 16-byte-aligned float array
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Lets kernel K take `dyn` bytes of dynamic shared memory beside `stat`
+// bytes of static.  The opt-in is per kernel and device and costs
+// microseconds, so it is made once.
+constexpr int DEVICES = 64;    // devices whose opt-in is remembered
+template <auto K>
+cudaError_t smem_opt_in(size_t dyn, size_t stat) {
+  if (dyn + stat <= 48 * 1024) return cudaSuccess;
+  static size_t opted[DEVICES] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess && (dev >= DEVICES || opted[dev] < dyn)) {
+    e = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)dyn);
+    if (e == cudaSuccess && dev < DEVICES) opted[dev] = dyn;
+  }
+  return e;
+}
+
+// ---------------------------------------------------------------------------
+// Raster (raster_fwd.cu, raster_bwd.cu)
+// ---------------------------------------------------------------------------
+// raster_fwd: RF_THREADS threads a strip.  Warp w owns the strip's columns
+// RF_BAND * w .. + RF_BAND - 1, all STRIP_H rows; lane l the column
+// RF_BAND * w + l % RF_BAND in the RF_ROWS rows from RF_ROWS * (l / RF_BAND).
+// Bins are culled RF_CHUNK slots at a time, one a thread.
+constexpr int RF_THREADS = 256;
+constexpr int RF_BAND = 16;
+constexpr int RF_ROWS = 4;
+static_assert(RF_BAND * (RF_THREADS / 32) == TILE_W, "warps span the strip");
+static_assert(32 / RF_BAND * RF_ROWS == STRIP_H, "lanes span a band");
+constexpr int RF_CHUNK = RF_THREADS;
+constexpr int RF_FIELDS = 13;      // z-loop's record columns 0-11 and 14
+// margin of the cull (rf_misses): relative, absolute, largest
+constexpr float RF_EPS = 1e-6f;
+constexpr float RF_TINY = 1e-30f;
+constexpr float RF_HUGE = 1e30f;
+
+// Whether no pixel centre (x, y) with x0 <= x <= x1 and y0 <= y <= y1 can
+// pass the z-test's edge tests q0 >= 0, q1 >= 0, q2 = s - q0 - q1 >= 0, for
+// the edge and denominator coefficients r = record columns 0-8.  True only
+// if one of q0, q1, q2 is below -e at all four corners, e = RF_EPS * M +
+// RF_TINY, M = the sum over q0, q1, s of |a| X + |b| Y + |c|, X = max(|x0|,
+// |x1|), Y = max(|y0|, |y1|).
+// Why no covered pixel is lost: the pixel centres of a range of columns
+// lie between the float centres of its end columns (pixel_x is a chain of
+// rounded monotone operations), and each of q0, q1, s is linear in (x, y),
+// so its exact value L at any centre is at most its largest corner value.
+// A value computed as (a*x + b*y) + c in float differs from L by at most
+// 3u (|ax| + |by| + |c|) (u = 2^-24; products that underflow add
+// 2^-149), and q2 from s - q0 - q1 by at most about 5u M.  A covered pixel
+// thus has exact q2 >= -3e-7 M, so at some corner the computed q2 is
+// >= -6e-7 M > -e; likewise q0 and q1.  Non-finite or huge coefficients
+// (e not below RF_HUGE, or a NaN corner value) never cull.
+__device__ __forceinline__ bool rf_misses(const float (&r)[9], float x0,
+                                          float x1, float y0, float y1) {
+  const float X = fmaxf(fabsf(x0), fabsf(x1));
+  const float Y = fmaxf(fabsf(y0), fabsf(y1));
+  const float M = ((fabsf(r[0]) * X + fabsf(r[1]) * Y + fabsf(r[2])) +
+                   (fabsf(r[3]) * X + fabsf(r[4]) * Y + fabsf(r[5]))) +
+                  (fabsf(r[6]) * X + fabsf(r[7]) * Y + fabsf(r[8]));
+  const float e = RF_EPS * M + RF_TINY;
+  if (!(e < RF_HUGE)) return false;
+  bool out0 = true, out1 = true, out2 = true;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float x = k & 1 ? x1 : x0, y = k & 2 ? y1 : y0;
+    const float q0 = r[0] * x + r[1] * y + r[2];
+    const float q1 = r[3] * x + r[4] * y + r[5];
+    const float s = r[6] * x + r[7] * y + r[8];
+    const float q2 = s - q0 - q1;
+    out0 = out0 && q0 < -e;
+    out1 = out1 && q1 < -e;
+    out2 = out2 && q2 < -e;
+  }
+  return out0 || out1 || out2;
+}
+
+// raster_bwd: RB_THREADS threads a tile, a warp a row; lane l takes the
+// row's pixels l, l + 32, l + 64, l + 96, one step each.
+constexpr int RB_THREADS = 32 * TILE_H;
+constexpr int RB_STEPS = TILE_W / 32;
+constexpr int RB_SUMS = 18;        // per-slot sums, output columns 0-17
+// the largest per-slot table kept in shared memory (cap 2,844)
+constexpr int RB_TABLE_MAX = 200 * 1024;
+
 // ---------------------------------------------------------------------------
 // Antialias (aa_fwd.cu, aa_bwd.cu)
 // ---------------------------------------------------------------------------
-// One block per (camera, tile, strip of AA_STRIP_H rows): blockIdx.x =
-// tile * AA_STRIPS + strip, tile = (c * TY + ty) * TX + tx.  AA_THREADS
-// threads, neighbouring threads on neighbouring columns; each thread takes
-// the pixel of its column in rows r and r + AA_ROWS of the strip.
+// One block per (camera, tile, strip).  AA_THREADS threads, neighbouring
+// threads on neighbouring columns; each thread takes the pixel of its
+// column in rows r and r + AA_ROWS of the strip.
 //
 // A block works in three phases (aa_collect, then each kernel's own):
 // 1. It lists the pixel pairs whose ids differ (about 14 % on the main
@@ -61,18 +162,16 @@ __device__ __forceinline__ float pixel_y(int ty, int row, float sys) {
 //    one pixel left of it or below it that end in it.  Only these run a
 //    lookup and an edge test, each once, with every lane of a warp busy.
 // 2. Each listed pair's crossing t goes to a shared grid of the strip's
-//    anchors, rows -1..AA_STRIP_H-1 by columns -1..TILE_W-1; a pair that
+//    anchors, rows -1..STRIP_H-1 by columns -1..TILE_W-1; a pair that
 //    does not blend (equal ids, no owner, no crossing) keeps AA_NO_T.
 // 3. Each pixel combines its own pairs' and its left and lower neighbours'
 //    weights with its colours, in the plain version's order.
-constexpr int AA_STRIP_H = 8;
-constexpr int AA_STRIPS = TILE_H / AA_STRIP_H;
 constexpr int AA_THREADS = 512;
 constexpr int AA_ROWS = AA_THREADS / TILE_W;
-static_assert(AA_ROWS * 2 == AA_STRIP_H, "two pixels a thread");
-constexpr int AA_CW = TILE_W + 1;                     // columns -1..127
-constexpr int AA_CELLS = (AA_STRIP_H + 1) * AA_CW;    // rows -1..7
-constexpr int AA_LIST = 2 * AA_STRIP_H * TILE_W + AA_STRIP_H + TILE_W;
+static_assert(AA_ROWS * 2 == STRIP_H, "two pixels a thread");
+constexpr int AA_CW = TILE_W + 1;                  // columns -1..127
+constexpr int AA_CELLS = (STRIP_H + 1) * AA_CW;    // rows -1..7
+constexpr int AA_LIST = 2 * STRIP_H * TILE_W + STRIP_H + TILE_W;
 constexpr float AA_NO_T = -1.0f;   // a blending pair's t lies in [-0, 1]
 // Owner tables: a block looks owners up in its own tile's bin and, for the
 // pairs anchored across its left and lower border, in that tile's bin.
@@ -86,21 +185,6 @@ constexpr float AA_NO_T = -1.0f;   // a blending pair's t lies in [-0, 1]
 constexpr int AA_TABLES = 3;
 constexpr long long AA_HASH_SMEM_MAX = 96 * 1024;
 constexpr unsigned long long AA_EMPTY = 0ull;   // no id > 0 has 0 bits
-constexpr int AA_DEVICES = 64;   // devices whose shared-memory opt-in is kept
-
-struct AaBlock {
-  int tile, c, ty, tx, strip;
-};
-
-__device__ __forceinline__ AaBlock aa_block(int TY, int TX) {
-  AaBlock b;
-  b.strip = blockIdx.x % AA_STRIPS;
-  b.tile = blockIdx.x / AA_STRIPS;
-  b.tx = b.tile % TX;
-  b.ty = (b.tile / TX) % TY;
-  b.c = b.tile / (TX * TY);
-  return b;
-}
 
 // log2 of an owner table's size: the least power of two >= 2n, at least 32
 __host__ __device__ __forceinline__ int aa_table_bits(int n) {
@@ -330,12 +414,12 @@ __device__ __forceinline__ void aa_push(const bool (&pred)[N],
   int incl = k;                          // inclusive scan over the warp
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    const int v = __shfl_up_sync(FULL, incl, d);
     if (lane >= d) incl += v;
   }
   int base = 0;
   if (lane == 31 && incl > 0) base = atomicAdd(&sh.count, incl);
-  int pos = __shfl_sync(0xffffffffu, base, 31) + incl - k;
+  int pos = __shfl_sync(FULL, base, 31) + incl - k;
 #pragma unroll
   for (int i = 0; i < N; ++i)
     if (pred[i]) sh.list[pos++] = (unsigned short)code[i];
@@ -406,7 +490,7 @@ __device__ __forceinline__ void aa_wait(const int* flags, int t) {
 __device__ __forceinline__ AaTables aa_collect(
     const float* __restrict__ rec, const int* __restrict__ counts,
     const float* __restrict__ fidp, unsigned long long* smem,
-    const AaGrid& g, const AaBlock& b, AaShared& sh) {
+    const AaGrid& g, const StripBlock& b, AaShared& sh) {
   const int TX = g.TX, cap = g.cap, H = g.H, W = g.W;
   const bool global = g.tables != nullptr;
   const bool has_l = b.tx > 0;
@@ -426,7 +510,7 @@ __device__ __forceinline__ AaTables aa_collect(
   const int c = threadIdx.x % TILE_W;
   const int x = b.tx * TILE_W + c;
   const int r0 = threadIdx.x / TILE_W;
-  const int y0 = b.ty * TILE_H + b.strip * AA_STRIP_H + r0;
+  const int y0 = b.ty * TILE_H + b.strip * STRIP_H + r0;
   float f[2], fr[2], fd[2], fl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -506,8 +590,9 @@ struct AaItem {
   float pax, pay, d_ex, d_ey;
 };
 
-__device__ __forceinline__ AaItem aa_item(int code, const AaBlock& b, int H,
-                                          int W, float sxs, float sys) {
+__device__ __forceinline__ AaItem aa_item(int code, const StripBlock& b,
+                                          int H, int W, float sxs,
+                                          float sys) {
   AaItem q;
   q.code = code;
   q.dir = code & 1;
@@ -515,7 +600,7 @@ __device__ __forceinline__ AaItem aa_item(int code, const AaBlock& b, int H,
   q.r = cell / AA_CW - 1;
   q.c = cell % AA_CW - 1;
   q.table = q.c < 0 ? 1 : (q.r < 0 && b.strip == 0 ? 2 : 0);
-  const int row = b.strip * AA_STRIP_H + q.r;       // in the tile
+  const int row = b.strip * STRIP_H + q.r;       // in the tile
   q.p = ((size_t)b.c * H + b.ty * TILE_H + row) * W + b.tx * TILE_W + q.c;
   q.pn = q.p + (q.dir ? W : 1);   // listed pairs differ: no edge pixel
   q.pax = pixel_x(b.tx, q.c, sxs);
@@ -560,20 +645,10 @@ int aa_launch(AaGrid g, int C, void* scratch, cudaStream_t stream,
   g.flags = global ? reinterpret_cast<int*>(g.tables + (size_t)tiles * g.ts)
                    : nullptr;
   const size_t smem = global ? 0 : (size_t)AA_TABLES * g.ts * 8;
-  if (smem + sizeof(AaShared) > 48 * 1024) {
-    // the opt-in is per kernel and device and costs microseconds: made once
-    static size_t opted[AA_DEVICES] = {};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess && (dev >= AA_DEVICES || opted[dev] < smem)) {
-      e = cudaFuncSetAttribute(K, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-      if (e == cudaSuccess && dev < AA_DEVICES) opted[dev] = smem;
-    }
-    if (e != cudaSuccess) return (int)e;
-  }
+  const cudaError_t e = smem_opt_in<K>(smem, sizeof(AaShared));
+  if (e != cudaSuccess) return (int)e;
   if (tiles > 0)
-    K<<<tiles * AA_STRIPS, AA_THREADS, smem, stream>>>(planes..., g);
+    K<<<tiles * STRIPS, AA_THREADS, smem, stream>>>(planes..., g);
   return (int)cudaGetLastError();
 }
 

@@ -6,82 +6,147 @@
 //
 // Bound on the H100: bytes.  The function must write eight output planes
 // and read the z-loop fields of every live slot; its float ops (~22 per
-// z-test of a slot at a pixel of its bbox) are small beside that.  This
-// kernel tests each slot at every pixel of the warp rows its bbox reaches,
-// which costs it more operations than the function needs.
+// z-test of a slot at a pixel of its bbox) are small beside that.  What
+// costs a kernel more is z-testing slots at pixels they cannot cover: the
+// record has no x-range, and a tile's bin holds some 400 slots of
+// triangles a few pixels wide.
 //
-// Design: one block of 256 threads per (camera, tile).  Warp w owns tile
-// rows 4w..4w+3 and lane l the columns l, l+32, l+64, l+96, so a slot whose
-// 1 px expanded y-range misses a warp's four rows is skipped by the whole
-// warp without divergence.  The z-loop fields (record columns 0-14) are
-// staged through shared memory in chunks of 256 slots, so any cap works.
-// Each pixel keeps the (depth, face id)-lexicographic minimum and its slot in
-// registers, then reads the winner's full record once to interpolate.
+// Design: one block of 256 threads per (camera, tile, strip of 8 rows), 832
+// blocks at the main path.  The block culls its tile's bin 256 slots at a
+// time, one a thread, with coalesced 16-byte reads of record columns 0-15:
+// a slot stays if its 1 px expanded y-range meets the strip and no edge
+// function rules the strip out at its corners (rf_misses, with a margin
+// that covers the per-pixel rounding).  The survivors go, in ascending slot
+// order (warp ballots and a prefix over the warps), to a shared list whose
+// z-loop fields are staged struct-of-arrays.  Each warp owns 16 columns by 8
+// rows, culls 32 list entries at once against its own columns with a
+// ballot, and z-tests only those left, four pixels a lane: the edge tests
+// first, the depth only where a lane of the warp is covered.  Each pixel
+// keeps the (depth, face id)-lexicographic minimum, the lowest slot on a
+// tie (the list's order), then reads the winner's record once to
+// interpolate.
 #include "common.cuh"
 
 namespace {
 
-constexpr int CH = 256;   // slots per shared-memory chunk
-constexpr int NF = 15;    // record columns the z-loop reads
+struct Shared {
+  float f[ls::RF_FIELDS][ls::RF_CHUNK];   // columns 0-11, 14 of the list
+  int slot[ls::RF_CHUNK];
+  int warp_n[ls::RF_THREADS / 32];        // survivors of each warp's slots
+};
 
-__global__ void __launch_bounds__(ls::THREADS)
+__global__ void __launch_bounds__(ls::RF_THREADS)
 raster_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
                   float* __restrict__ out, int C, int TY, int TX, int cap,
                   int H, int W, float sxs, float sys) {
-  __shared__ float sf[CH * NF];
-  const ls::Tile t = ls::tile_of_block(TY, TX);
-  const int n = min(counts[t.b], cap);
-  const float* rb = rec + (size_t)t.b * cap * 32;
+  __shared__ Shared sh;
+  const ls::StripBlock b = ls::strip_block(TY, TX);
+  const int n = min(counts[b.tile], cap);
+  const float* rb = rec + (size_t)b.tile * cap * 32;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row_in = warp * 4;                       // first tile row
-  const float row_lo = (float)(t.ty * ls::TILE_H + row_in);
-  const float row_hi = row_lo + 3.0f;
+  const int row0 = b.strip * ls::STRIP_H;                  // in the tile
+  const int col = warp * ls::RF_BAND + lane % ls::RF_BAND;
+  const int rows = row0 + ls::RF_ROWS * (lane / ls::RF_BAND);
 
-  float px[4], py[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) px[k] = ls::pixel_x(t.tx, lane + 32 * k, sxs);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) py[r] = ls::pixel_y(t.ty, row_in + r, sys);
+  // the strip's and the warp's corner pixel centres, and the strip's rows
+  const float sx0 = ls::pixel_x(b.tx, 0, sxs);
+  const float sx1 = ls::pixel_x(b.tx, ls::TILE_W - 1, sxs);
+  const float wx0 = ls::pixel_x(b.tx, warp * ls::RF_BAND, sxs);
+  const float wx1 = ls::pixel_x(b.tx, warp * ls::RF_BAND + ls::RF_BAND - 1,
+                                sxs);
+  const float sy0 = ls::pixel_y(b.ty, row0, sys);
+  const float sy1 = ls::pixel_y(b.ty, row0 + ls::STRIP_H - 1, sys);
+  const float row_lo = (float)(b.ty * ls::TILE_H + row0);
+  const float row_hi = row_lo + (float)(ls::STRIP_H - 1);
 
-  float bd[16], bf[16];
-  int bs[16];
+  const float px = ls::pixel_x(b.tx, col, sxs);
+  float py[ls::RF_ROWS], bd[ls::RF_ROWS], bf[ls::RF_ROWS];
+  int bs[ls::RF_ROWS];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    bd[i] = ls::BIG;
-    bf[i] = ls::BIG;
-    bs[i] = -1;
+  for (int k = 0; k < ls::RF_ROWS; ++k) {
+    py[k] = ls::pixel_y(b.ty, rows + k, sys);
+    bd[k] = ls::BIG;
+    bf[k] = ls::BIG;
+    bs[k] = -1;
   }
 
-  for (int base = 0; base < n; base += CH) {
-    const int m = min(CH, n - base);
+  for (int base = 0; base < n; base += ls::RF_CHUNK) {
+    // cull: one slot a thread
+    const int j = base + threadIdx.x;
+    bool keep = false;
+    float4 a0, a1, a2, a3;
+    if (j < n) {
+      const float* r = rb + (size_t)j * 32;
+      a3 = ls::ld4(r + 12);                 // ymin ymax fid -
+      a0 = ls::ld4(r);
+      a1 = ls::ld4(r + 4);
+      a2 = ls::ld4(r + 8);
+      const float e[9] = {a0.x, a0.y, a0.z, a0.w, a1.x,
+                          a1.y, a1.z, a1.w, a2.x};
+      keep = !(a3.y < row_lo || a3.x > row_hi) &&
+             !ls::rf_misses(e, sx0, sx1, sy0, sy1);
+    }
+    const unsigned vote = __ballot_sync(ls::FULL, keep);
+    __syncthreads();                      // the last chunk's list is read
+    if (lane == 0) sh.warp_n[warp] = __popc(vote);
     __syncthreads();
-    for (int i = threadIdx.x; i < m * NF; i += blockDim.x) {
-      const int j = i / NF;
-      sf[i] = rb[(size_t)(base + j) * 32 + (i - j * NF)];
+    int pos = __popc(vote & ((1u << lane) - 1u)), m = 0;
+#pragma unroll
+    for (int w = 0; w < ls::RF_THREADS / 32; ++w) {
+      const int c = sh.warp_n[w];
+      pos += w < warp ? c : 0;
+      m += c;
+    }
+    if (keep) {
+      const float v[ls::RF_FIELDS] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z,
+                                      a1.w, a2.x, a2.y, a2.z, a2.w, a3.z};
+#pragma unroll
+      for (int k = 0; k < ls::RF_FIELDS; ++k) sh.f[k][pos] = v[k];
+      sh.slot[pos] = j;
     }
     __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      const float* r = sf + j * NF;
-      if (r[13] < row_lo || r[12] > row_hi) continue;   // warp-uniform
-      const float fid = r[14];
-      const int slot = base + j;
+
+    // z-loop: each warp culls 32 entries against its columns, then z-tests
+    // the entries left, in list order
+    for (int e0 = 0; e0 < m; e0 += 32) {
+      const int i = e0 + lane;
+      bool hit = false;
+      if (i < m) {
+        float r[9];
 #pragma unroll
-      for (int rr = 0; rr < 4; ++rr) {
+        for (int k = 0; k < 9; ++k) r[k] = sh.f[k][i];
+        hit = !ls::rf_misses(r, wx0, wx1, sy0, sy1);
+      }
+      for (unsigned hits = __ballot_sync(ls::FULL, hit); hits;
+           hits &= hits - 1u) {
+        const int e = e0 + __ffs(hits) - 1;
+        float r[9];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float x = px[k], y = py[rr];
+        for (int k = 0; k < 9; ++k) r[k] = sh.f[k][e];
+        bool cov[ls::RF_ROWS], any = false;
+#pragma unroll
+        for (int k = 0; k < ls::RF_ROWS; ++k) {
+          const float x = px, y = py[k];
           const float q0 = r[0] * x + r[1] * y + r[2];
           const float q1 = r[3] * x + r[4] * y + r[5];
           const float s = r[6] * x + r[7] * y + r[8];
-          const float d = r[9] * x + r[10] * y + r[11];
           const float q2 = s - q0 - q1;
-          const int i = rr * 4 + k;
-          if (q0 >= 0.0f && q1 >= 0.0f && q2 >= 0.0f && s > 0.0f &&
-              d < ls::BIG && (d < bd[i] || (d == bd[i] && fid < bf[i]))) {
-            bd[i] = d;
-            bf[i] = fid;
-            bs[i] = slot;
+          cov[k] = q0 >= 0.0f && q1 >= 0.0f && q2 >= 0.0f && s > 0.0f;
+          any = any || cov[k];
+        }
+        if (!__any_sync(ls::FULL, any)) continue;
+        const float d0 = sh.f[9][e], d1 = sh.f[10][e], d2 = sh.f[11][e];
+        const float fid = sh.f[12][e];
+        const int slot = sh.slot[e];
+#pragma unroll
+        for (int k = 0; k < ls::RF_ROWS; ++k) {
+          const float d = d0 * px + d1 * py[k] + d2;
+          if (cov[k] && d < ls::BIG &&
+              (d < bd[k] || (d == bd[k] && fid < bf[k]))) {
+            bd[k] = d;
+            bf[k] = fid;
+            bs[k] = slot;
           }
         }
       }
@@ -90,39 +155,37 @@ raster_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
 
   const size_t plane = (size_t)C * H * W;
 #pragma unroll
-  for (int rr = 0; rr < 4; ++rr) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = rr * 4 + k;
-      const int y = t.ty * ls::TILE_H + row_in + rr;
-      const int x = t.tx * ls::TILE_W + lane + 32 * k;
-      float* o = out + ((size_t)t.c * H + y) * W + x;
-      float u = 0.0f, v = 0.0f, z = 0.0f, fid = 0.0f;
-      float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-      if (bs[i] >= 0) {
-        const float* f = rb + (size_t)bs[i] * 32;
-        const float X = px[k], Y = py[rr];
-        const float q0 = f[0] * X + f[1] * Y + f[2];
-        const float q1 = f[3] * X + f[4] * Y + f[5];
-        const float s = f[6] * X + f[7] * Y + f[8];
-        const float inv_s = 1.0f / (s == 0.0f ? 1.0f : s);
-        u = q0 * inv_s;
-        v = q1 * inv_s;
-        z = bd[i];
-        fid = f[14];
-        c0 = u * f[16] + v * f[17] + f[18];
-        c1 = u * f[19] + v * f[20] + f[21];
-        c2 = u * f[22] + v * f[23] + f[24];
-      }
-      o[0] = u;
-      o[plane] = v;
-      o[2 * plane] = z;
-      o[3 * plane] = fid;
-      o[4 * plane] = (float)bs[i];
-      o[5 * plane] = c0;
-      o[6 * plane] = c1;
-      o[7 * plane] = c2;
+  for (int k = 0; k < ls::RF_ROWS; ++k) {
+    const int y = b.ty * ls::TILE_H + rows + k;
+    const int x = b.tx * ls::TILE_W + col;
+    float* o = out + ((size_t)b.c * H + y) * W + x;
+    float u = 0.0f, v = 0.0f, z = 0.0f, fid = 0.0f;
+    float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+    if (bs[k] >= 0) {
+      const float* f = rb + (size_t)bs[k] * 32;
+      const float4 f0 = ls::ld4(f), f1 = ls::ld4(f + 4), f2 = ls::ld4(f + 8);
+      const float4 f4 = ls::ld4(f + 16), f5 = ls::ld4(f + 20);
+      const float X = px, Y = py[k];
+      const float q0 = f0.x * X + f0.y * Y + f0.z;
+      const float q1 = f0.w * X + f1.x * Y + f1.y;
+      const float s = f1.z * X + f1.w * Y + f2.x;
+      const float inv_s = 1.0f / (s == 0.0f ? 1.0f : s);
+      u = q0 * inv_s;
+      v = q1 * inv_s;
+      z = bd[k];
+      fid = bf[k];
+      c0 = u * f4.x + v * f4.y + f4.z;
+      c1 = u * f4.w + v * f5.x + f5.y;
+      c2 = u * f5.z + v * f5.w + f[24];
     }
+    o[0] = u;
+    o[plane] = v;
+    o[2 * plane] = z;
+    o[3 * plane] = fid;
+    o[4 * plane] = (float)bs[k];
+    o[5 * plane] = c0;
+    o[6 * plane] = c1;
+    o[7 * plane] = c2;
   }
 }
 
@@ -131,9 +194,9 @@ raster_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
 extern "C" int ls_raster_fwd(const float* rec, const int* counts, float* out,
                              int C, int TY, int TX, int cap, int H, int W,
                              float sxs, float sys, void* stream) {
-  const int blocks = C * TY * TX;
+  const int blocks = C * TY * TX * ls::STRIPS;
   if (blocks > 0)
-    raster_fwd_kernel<<<blocks, ls::THREADS, 0, (cudaStream_t)stream>>>(
+    raster_fwd_kernel<<<blocks, ls::RF_THREADS, 0, (cudaStream_t)stream>>>(
         rec, counts, out, C, TY, TX, cap, H, W, sxs, sys);
   return (int)cudaGetLastError();
 }

@@ -137,6 +137,12 @@ def _check_cuda_inputs(name, **tensors):
                              f"{'' if t.is_contiguous() else ' (strided)'}")
 
 
+def _check_aligned(name, *tensors):
+    """The raster kernels read records 16 bytes at a time."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: records must be 16-byte aligned")
+
+
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
@@ -154,6 +160,7 @@ def raster_fwd(rec_fwd_b, counts_b, resolution):
         return raster_fwd_plain(rec_fwd_b, counts_b, resolution)
     from .. import _cuda
     _check_cuda_inputs("raster_fwd", rec=rec_fwd_b, counts=counts_b)
+    _check_aligned("raster_fwd", rec_fwd_b)
     C, ty, tx, cap, _ = rec_fwd_b.shape
     height, width = resolution
     out = torch.empty((8, C, height, width), dtype=torch.float32,
@@ -236,14 +243,16 @@ def raster_bwd(rec_bwd_b, counts_b, slot, d_col, d_u, d_v, resolution):
     from .. import _cuda
     _check_cuda_inputs("raster_bwd", rec=rec_bwd_b, counts=counts_b,
                        slot=slot, d_col=d_col, d_u=d_u, d_v=d_v)
+    _check_aligned("raster_bwd", rec_bwd_b)
     C, ty, tx, cap, _ = rec_bwd_b.shape
     height, width = resolution
-    out = torch.zeros((C, ty, tx, cap, 32), dtype=torch.float32,
+    # the kernel writes every element (zeros, then adds the sums)
+    out = torch.empty((C, ty, tx, cap, 32), dtype=torch.float32,
                       device=rec_bwd_b.device)
     sxs, sys_ = _scales(resolution)
     err = _cuda.library("raster_bwd")(
-        rec_bwd_b.data_ptr(), counts_b.data_ptr(), slot.data_ptr(),
-        d_col.data_ptr(), d_u.data_ptr(), d_v.data_ptr(), out.data_ptr(),
+        rec_bwd_b.data_ptr(), slot.data_ptr(), d_col.data_ptr(),
+        d_u.data_ptr(), d_v.data_ptr(), out.data_ptr(),
         C, ty, tx, cap, height, width, sxs, sys_, _stream())
     _cuda.check("raster_bwd", err)
     LAUNCHES["raster_bwd"] += 1

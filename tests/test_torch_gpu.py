@@ -22,6 +22,11 @@ cotangents from a numpy seed.
   tables' hash (``aa_home`` in ``csrc/common.cuh``, mirrored below); bins
   that overflow (cap 48, and counts passed above cap); every bin holding
   each face twice (the lowest slot must win).
+* ``raster_bins`` (the raster kernels) at 256×256: large triangles
+  (icosphere-1 close to the camera: a slot owns thousands of pixels, the
+  most contention on one slot's sums, and edges that span the image for
+  the corner cull), at the fitted cap and at cap 9216; the overflowing
+  bins; every bin holding each face twice, at both caps.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
@@ -60,12 +65,12 @@ def _colliding_ids(count):
     return ids[:count]
 
 
-def _build(res, cap_rule):
+def _build(res, cap_rule, level=4, distance=3.5):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    scene = make_scene(source=("icosphere", 4), target=("gourd", 2),
-                       n_views=1, res=res)
+    scene = make_scene(source=("icosphere", level), target=("gourd", 2),
+                       n_views=1, res=res, distance=distance)
     f = scene["mesh-source"]["faces"]
     faces = torch.as_tensor(f.astype(np.int64), device=dev)
     opp = torch.as_tensor(face_adjacency(f).astype(np.int64), device=dev)
@@ -102,57 +107,97 @@ def cuda_case(request):
     return _build(*request.param)
 
 
+def _overflowing():
+    c = _build(256, 48)
+    assert c["occ"] > 48
+    c["counts"] = (c["counts"] + 50).contiguous()        # above cap as well
+    return c
+
+
+def _duplicated(c):
+    """Each tile's live slots, then the same faces again, in both records."""
+    counts = c["counts"]
+    n = int(counts.max())
+    idx = torch.arange(2 * n, device=counts.device)
+    cnt = counts[..., None].long()
+    src = torch.where(idx < cnt, idx, idx - cnt).clamp(max=n - 1)
+    for k in ("rfb", "rbb"):
+        r = torch.gather(c[k][..., :n, :], 3,
+                         src[..., None].expand(*src.shape, 32))
+        c[k] = torch.where((idx < 2 * cnt)[..., None], r, 0.0).contiguous()
+    c["counts"] = (2 * counts).contiguous()
+    return c
+
+
 @pytest.fixture(params=["collide", "overflow", "duplicate"])
 def aa_bins(request):
     if request.param == "overflow":
-        c = _build(256, 48)
-        assert c["occ"] > 48
-        c["counts"] = (c["counts"] + 50).contiguous()    # above cap as well
-        return c
+        return _overflowing()
     c = _build(256, "fit")
+    if request.param == "duplicate":
+        return _duplicated(c)
     rbb, counts = c["rbb"], c["counts"]
-    if request.param == "collide":
-        assert 2 * int(counts.max()) <= 2 ** HASH_BITS
-        n_faces = int(rbb[..., 22].max())
-        table = torch.zeros(n_faces + 1, device=rbb.device)
-        table[1:] = torch.as_tensor(_colliding_ids(n_faces),
-                                    device=rbb.device)
-        relabel = lambda a: table[a.long()]              # 0 stays 0
-        rbb = rbb.clone()
-        for k in (22, 23, 24, 25):                       # fid and opp ids
-            rbb[..., k] = relabel(rbb[..., k])
-        c["fwd"][3] = relabel(c["fwd"][3]).contiguous()
-    else:
-        # each tile's live slots, then the same faces again
-        n = int(counts.max())
-        idx = torch.arange(2 * n, device=rbb.device)
-        cnt = counts[..., None].long()
-        src = torch.where(idx < cnt, idx, idx - cnt).clamp(max=n - 1)
-        rbb = torch.gather(rbb[..., :n, :], 3,
-                           src[..., None].expand(*src.shape, 32))
-        rbb = torch.where((idx < 2 * cnt)[..., None], rbb, 0.0)
-        counts = 2 * counts
-    c["rbb"], c["counts"] = rbb.contiguous(), counts.contiguous()
+    assert 2 * int(counts.max()) <= 2 ** HASH_BITS
+    n_faces = int(rbb[..., 22].max())
+    table = torch.zeros(n_faces + 1, device=rbb.device)
+    table[1:] = torch.as_tensor(_colliding_ids(n_faces), device=rbb.device)
+    relabel = lambda a: table[a.long()]                  # 0 stays 0
+    rbb = rbb.clone()
+    for k in (22, 23, 24, 25):                           # fid and opp ids
+        rbb[..., k] = relabel(rbb[..., k])
+    c["fwd"][3] = relabel(c["fwd"][3]).contiguous()
+    c["rbb"] = rbb.contiguous()
     return c
+
+
+@pytest.fixture(params=[("large", "fit"), ("large", 9216), ("overflow", 48),
+                        ("duplicate", "fit"), ("duplicate", 9216)],
+                ids=["large", "large_9216", "overflow", "duplicate",
+                     "duplicate_9216"])
+def raster_bins(request):
+    kind, cap = request.param
+    if kind == "overflow":
+        return _overflowing()
+    if kind == "large":
+        c = _build(256, cap, level=1, distance=1.6)
+        slots = c["fwd"][4]
+        most = torch.unique(slots[slots >= 0], return_counts=True)[1].max()
+        assert int(most) > 2000                  # one slot, many pixels
+        return c
+    return _duplicated(_build(256, cap))
 
 
 def _max_abs(a, b):
     return float((a - b).abs().max())
 
 
-@pytest.mark.gpu
-def test_gpu_raster_fwd(cuda_case):
-    c = cuda_case
-    assert int(c["counts"].max()) > 256          # several smem chunks
+def _check_raster_fwd(c):
     n0 = K.LAUNCHES["raster_fwd"]
     got = K.raster_fwd(c["rfb"], c["counts"], c["res"])
     torch.cuda.synchronize()
     assert K.LAUNCHES["raster_fwd"] == n0 + 1
-    want = c["fwd"]
+    want = [p.contiguous() for p in K.raster_fwd_plain(c["rfb"], c["counts"],
+                                                       c["res"])]
     assert int((want[3] > 0).sum()) > 1000       # a real image
     assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
     for a, b in zip(got, want):
         assert _max_abs(a, b) < 1e-6
+    return want
+
+
+@pytest.mark.gpu
+def test_gpu_raster_fwd(cuda_case):
+    assert int(cuda_case["counts"].max()) > 256  # several cull chunks
+    _check_raster_fwd(cuda_case)
+
+
+@pytest.mark.gpu
+def test_gpu_raster_fwd_bins(raster_bins):
+    want = _check_raster_fwd(raster_bins)
+    # the forward planes the bins were built from: a repeated face never
+    # wins over its first slot, and an overflowing bin's counts change
+    # nothing past the cap
+    assert torch.equal(want[4], raster_bins["fwd"][4])
 
 
 def _check_aa_fwd(c, D):
@@ -188,18 +233,47 @@ def test_gpu_aa_fwd(cuda_case, D):
     _check_aa_fwd(cuda_case, D)
 
 
-@pytest.mark.gpu
-def test_gpu_raster_bwd(cuda_case):
-    c = cuda_case
-    args = (c["rbb"], c["counts"], c["fwd"][4], c["d_col"], c["d_u"],
-            c["d_v"], c["res"])
+def _check_raster_bwd(c, slot):
+    args = (c["rbb"], c["counts"], slot, c["d_col"], c["d_u"], c["d_v"],
+            c["res"])
     n0 = K.LAUNCHES["raster_bwd"]
     got = K.raster_bwd(*args)
     torch.cuda.synchronize()
     assert K.LAUNCHES["raster_bwd"] == n0 + 1
     want = K.raster_bwd_plain(*args)
+    assert float(want.abs().max()) > 0.0
     assert _max_abs(got, want) < 1e-5 * float(want.abs().max())
     assert bool((got[..., 18:] == 0).all())
+
+
+@pytest.mark.gpu
+def test_gpu_raster_bwd(cuda_case):
+    _check_raster_bwd(cuda_case, cuda_case["fwd"][4])
+
+
+@pytest.mark.gpu
+def test_gpu_raster_bwd_bins(raster_bins):
+    _check_raster_bwd(raster_bins, raster_bins["fwd"][4])
+
+
+@pytest.mark.gpu
+def test_gpu_raster_bwd_one_slot_a_tile(cuda_case):
+    """Every covered pixel of a tile names the tile's slot 0: all lanes of
+    every row add into one slot."""
+    slot = cuda_case["fwd"][4]
+    _check_raster_bwd(cuda_case, torch.where(slot >= 0, 0.0, -1.0))
+
+
+@pytest.mark.gpu
+def test_gpu_raster_bwd_writes_every_element(cuda_case):
+    """The output is not zeroed by the wrapper: a freed block of NaNs of
+    its size, which the allocator hands out again, must not show through."""
+    c = cuda_case
+    junk = torch.full(c["rbb"].shape, float("nan"), device="cuda")
+    del junk
+    got = K.raster_bwd(c["rbb"], c["counts"], c["fwd"][4], c["d_col"],
+                       c["d_u"], c["d_v"], c["res"])
+    assert bool(torch.isfinite(got).all())
 
 
 @pytest.mark.gpu
