@@ -7,11 +7,16 @@ each against its plain PyTorch version at the main path's shapes, holds a
 2-view render on the card against the same render on the CPU, and runs the
 main path (the ``bench.py:bench_step`` scene: icosphere-4 fitted to gourd-4,
 13 views at 256², shaded, boost 3, λ = 19, l2 loss, AdamUniform) for 20
-steps through the port's ``optimize_shape``.  Prints one JSON line per
-phase, then the kernel table, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without the
-``ok`` line, if there is no CUDA device or any phase fails.  Imports neither
-jax nor largesteps_tpu.
+steps through the port's ``optimize_shape``.  Then the large-F path at the
+teaser's nefertiti scale (icosphere-7, 327,680 faces, fitted to gourd-7, 13
+views at 256²): each kernel against its plain version on the 13 views'
+host bins at the run's cap, the batched and the camera-sequential prebinned
+pipes against each other, and 20 steps of the teaser's ``ours`` leg
+(boost 3, α = 0.98, l1, AdamUniform at 2e-3; host bins, device rebins, the
+banded solver).  Prints one JSON line per phase, then the kernel table, the
+card's name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.  Exits non-zero, without the ``ok`` line, if there is no CUDA
+device or any phase fails.  Imports neither jax nor largesteps_tpu.
 """
 import json
 import os
@@ -241,11 +246,78 @@ def main_path_inputs():
             "n_faces": f.shape[0]}
 
 
-def phase_kernels(card, ptxas):
-    """Each kernel against its plain version on one forward+backward's real
-    inputs at the main path's shapes."""
+def host_bins(renderer, verts, faces, margin, **kw):
+    """Host bins of (V, 3) vertices in the renderer's views, projected on
+    the host as the driver projects them."""
+    from largesteps_torch.render.pipeline import bin_triangles_host
+    vh = np.concatenate([verts, np.ones((len(verts), 1), np.float32)], 1)
+    return bin_triangles_host(np.einsum("cij,vj->cvi",
+                                        renderer.mvps.cpu().numpy(), vh),
+                              faces, renderer.res, margin=margin, **kw)
+
+
+def large_f_inputs():
+    """The kernels' inputs of the large-F run's first forward and backward,
+    at its shapes: the nefertiti source (327,680 faces) in 13 views at 256²,
+    host bins at the driver's margin (4 px) and fitted cap as its epoch
+    makes them, the forward planes, the composited colour and the l1 loss
+    cotangent against the target rendered through its own host bins."""
     from largesteps_torch.render import kernels as K
-    m = main_path_inputs()
+    from largesteps_torch.render.camera import project
+    from largesteps_torch.render.pipeline import setup_from_bins
+    from largesteps_torch.render.renderer import Renderer, Topology
+    from largesteps_torch.render.sh import sh_eval
+    from largesteps_torch.profiling import large_f_scene
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    dev = torch.device("cuda")
+    scene = large_f_scene(seed=SEED)
+    r = Renderer(scene, shading=True, boost=3, device=dev)
+    res = r.res
+    f = scene["mesh-source"]["faces"]
+    topo = Topology(f)
+    vs = scene["mesh-source"]["vertices"]
+    bins, counts, occ = host_bins(r, vs, f, 4.0)
+    cap = bins.shape[-1]
+    vt_np, ft = scene["mesh-target"]["vertices"], scene["mesh-target"]["faces"]
+    tb, tc, _ = host_bins(r, vt_np, ft, 0.0)
+    up = lambda a: torch.as_tensor(a, device=dev)
+    v, vt = up(vs), up(vt_np)
+    with torch.no_grad():
+        ref = r.render(vt, compute_vertex_normals(
+            vt, ft, compute_face_normals(vt, ft)), Topology(ft),
+            bins=(up(tb).long(), up(tc)))
+        n = compute_vertex_normals(v, f, compute_face_normals(v, f))
+        faces = up(f.astype(np.int64))
+        opp = up(topo.opp.astype(np.int64))
+        rfb, rbb = setup_from_bins(project(v, r.mvps), faces,
+                                   sh_eval(r.sh_M, n) / np.pi, opp,
+                                   up(bins).long(), *res)
+    C, TY, TX = len(r.view_mats), res[0] // K.TILE_H, res[1] // K.TILE_W
+    rfb = rfb.reshape(C, TY, TX, cap, 32)
+    rbb = rbb.reshape(C, TY, TX, cap, 32)
+    counts = up(counts).reshape(C, TY, TX)
+    u, vv, z, fid, slot, c0, c1, c2 = K.raster_fwd(rfb, counts, res)
+    cov = (fid > 0)[..., None]
+    comp = torch.where(cov, torch.cat([torch.stack([c0, c1, c2], -1),
+                                       cov.float()], -1), r.bgs).contiguous()
+    img = K.aa_fwd(rbb, counts, fid, z, comp, res)
+    d_out = (torch.sign(img - ref) / img.numel()).contiguous()
+    d_comp, _ = K.aa_bwd(rbb, counts, fid, z, comp, d_out, res)
+    d_col = torch.where(cov, d_comp[..., :3], 0.0).contiguous()
+    torch.cuda.synchronize()
+    return {"occ": occ, "cap": cap, "res": res, "rfb": rfb, "rbb": rbb,
+            "counts": counts, "fid": fid, "z": z, "slot": slot,
+            "comp": comp, "d_out": d_out, "d_col": d_col,
+            "n_faces": f.shape[0]}
+
+
+def check_kernels(m, card, phase, reps, plain_reps):
+    """Each kernel against its plain version on the inputs ``m``: its
+    time, its plain version's (the mean of ``plain_reps`` calls, or with 0
+    the one call compared), its bound by this data's work, and the errors;
+    returns (passed, {name: row of the kernels line})."""
+    from largesteps_torch.render import kernels as K
     occ, cap, res, rfb, rbb, counts = (m[k] for k in ("occ", "cap", "res",
                                                       "rfb", "rbb", "counts"))
     fid, z, slot, comp, d_out, d_col = (m[k] for k in (
@@ -264,30 +336,41 @@ def phase_kernels(card, ptxas):
          lambda: K.raster_fwd_plain(rfb, counts, res),
          (live * COLS_ZLOOP + w["winners"] * COLS_FINISH) * F32
          + nbytes(counts) + 8 * plane,
-         FLOPS_Z_TEST * w["z_tests"] + FLOPS_FINISH * w["covered"]),
+         FLOPS_Z_TEST * w["z_tests"] + FLOPS_FINISH * w["covered"],
+         (rfb, counts)),
         ("aa_fwd", "largesteps_tpu/render/pallas_core.py:1635",
          lambda: K.aa_fwd(rbb, counts, fid, z, comp, res),
          lambda: K.aa_fwd_plain(rbb, counts, fid, z, comp, res),
          (live * COLS_SEARCH + w["owners"] * COLS_EDGE) * F32
          + nbytes(counts) + (2 + 2 * D) * plane,
-         (FLOPS_PAIR + FLOPS_BLEND * D) * w["pairs"]),
+         (FLOPS_PAIR + FLOPS_BLEND * D) * w["pairs"],
+         (rbb, counts, fid, z, comp)),
         ("raster_bwd", "largesteps_tpu/render/pallas_core.py:1120",
          lambda: K.raster_bwd(rbb, counts, slot, d_col, zeros, zeros, res),
          lambda: K.raster_bwd_plain(rbb, counts, slot, d_col, zeros, zeros,
                                     res),
          (w["winners"] * COLS_RBWD + live * COLS_RBWD_OUT) * F32
          + nbytes(counts) + 6 * plane,
-         FLOPS_RBWD * w["covered"]),
+         FLOPS_RBWD * w["covered"],
+         (rbb, counts, slot, d_col, zeros, zeros)),
         ("aa_bwd", "largesteps_tpu/render/pallas_core.py:1819",
          lambda: K.aa_bwd(rbb, counts, fid, z, comp, d_out, res),
          lambda: K.aa_bwd_plain(rbb, counts, fid, z, comp, d_out, res),
          (live * (COLS_SEARCH + COLS_AA_OUT) + w["owners"] * COLS_EDGE) * F32
          + nbytes(counts) + (2 + 3 * D) * plane,
-         (FLOPS_PAIR + FLOPS_PAIR_BWD + 2 * FLOPS_BLEND * D) * w["pairs"]),
+         (FLOPS_PAIR + FLOPS_PAIR_BWD + 2 * FLOPS_BLEND * D) * w["pairs"],
+         (rbb, counts, fid, z, comp, d_out)),
     ]
+    live_n = counts.float()
     table, ok = {}, True
-    for name, replaces, kern, plain, nb_, ops in cases:
-        got, want = kern(), plain()
+    for name, replaces, kern, plain, nb_, ops, inputs in cases:
+        got = kern()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        want = plain()
+        b.record()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
@@ -297,8 +380,10 @@ def phase_kernels(card, ptxas):
                                + got[i + 1:], want)[0]
                      for i in range(len(got)))
         passed = passed and caught
-        ms = time_ms(kern, 50)
-        plain_ms = time_ms(plain, 3, warm=1)
+        del got, want
+        ms = time_ms(kern, reps)
+        plain_ms = time_ms(plain, plain_reps, warm=1) if plain_reps \
+            else a.elapsed_time(b)
         t_bytes = nb_ / PEAK_BYTES * 1e3
         t_ops = ops / PEAK_F32 * 1e3
         table[name] = {
@@ -309,21 +394,46 @@ def phase_kernels(card, ptxas):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
-        if name in REDESIGNED:
-            table[name].update({"redesigned": REDESIGNED[name],
-                                "ptxas": ran(ptxas[name], instance(name, cap,
-                                                                   D))})
-        emit({"phase": "kernel", "name": name, "passed": passed,
+        emit({"phase": phase, "name": name, "passed": passed,
               "max_abs_err": errs, "max_rel_err": [
                   e / s if s else 0.0 for e, s in zip(errs, scales)],
               "tolerance": tol, "planted_errors_caught": caught,
               "ms": ms, "plain_ms": plain_ms,
               "bytes": nb_, "flops": ops, "bytes_ms": t_bytes,
               "ops_ms": t_ops, "work": w, "cap": cap, "occupancy": occ,
+              "live_slots_max": int(live_n.max()),
+              "live_slots_mean": float(live_n.mean()),
+              "input_bytes": nbytes(*inputs),
               "shapes": {"rec": list(rfb.shape), "planes": list(fid.shape),
                          "color": list(comp.shape)},
               "card": card})
         ok = ok and passed
+    return ok, table
+
+
+def phase_kernels(card, ptxas):
+    """Each kernel against its plain version on one forward+backward's real
+    inputs at the main path's shapes."""
+    m = main_path_inputs()
+    ok, table = check_kernels(m, card, "kernel", 50, 3)
+    for name, row in table.items():
+        if name in REDESIGNED:
+            row.update({"redesigned": REDESIGNED[name],
+                        "ptxas": ran(ptxas[name], instance(
+                            name, m["cap"], m["comp"].shape[-1]))})
+    return ok, table
+
+
+def phase_large_f_kernels(card):
+    """Each kernel against its plain version at the large-F run's shapes:
+    13 views of nefertiti through the epoch's host bins (the plain versions
+    timed on the one call compared)."""
+    m = large_f_inputs()
+    ok, table = check_kernels(m, card, "large_f_kernel", 10, 0)
+    for row in table.values():
+        row["cap"] = m["cap"]
+    del m
+    torch.cuda.empty_cache()
     return ok, table
 
 
@@ -393,36 +503,172 @@ def phase_main_path(card):
     return passed, launches
 
 
+def phase_large_f_pipes(card):
+    """One forward and backward of the batched prebinned pipe and of the
+    camera-sequential pipe at nefertiti (13 views at 256²) on the same host
+    bins (margin 4 px, with the face→slot inverse): images within 1e-5,
+    gradients within 1e-4 × max|g|; each pipe's time and peak memory, and
+    which one the renderer picks."""
+    from largesteps_torch.render import renderer as R
+    from largesteps_torch.render.camera import project
+    from largesteps_torch.render.pipeline import (RenderPipeline,
+                                                  RenderPipelineBig)
+    from largesteps_torch.render.sh import sh_eval
+    from largesteps_torch.profiling import large_f_scene
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    dev = torch.device("cuda")
+    scene = large_f_scene(seed=SEED)
+    r = R.Renderer(scene, shading=True, boost=3, device=dev)
+    f = scene["mesh-source"]["faces"]
+    topo = R.Topology(f)
+    vs = scene["mesh-source"]["vertices"]
+    bins, counts, fslots, occ = host_bins(r, vs, f, 4.0, return_slots=True)
+    cap, K = bins.shape[-1], fslots.shape[-1]
+    up = lambda a: torch.as_tensor(a, device=dev)
+    binned = (up(bins).long(), up(counts), up(fslots).long())
+    v = up(vs)
+    with torch.no_grad():
+        n = compute_vertex_normals(v, f, compute_face_normals(v, f))
+        v_ndc = project(v, r.mvps)
+        attrs = sh_eval(r.sh_M, n) / np.pi
+    w = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(len(r.view_mats), *r.res, 4)).astype(np.float32), device=dev)
+    out, times, peaks = {}, {}, {}
+    for name, kind in (("batched", RenderPipeline),
+                       ("camera_sequential", RenderPipelineBig)):
+        kw = {"prebinned": True} if kind is RenderPipeline else {}
+        pipe = kind(f, topo.opp, r.res, shading=True, boost=3.0, cap=cap,
+                    slots_k=K, **kw)
+
+        def run():
+            vc = v_ndc.clone().requires_grad_(True)
+            img = pipe(vc, attrs, r.bgs, *binned)
+            (w * img).sum().backward()
+            return img.detach(), vc.grad
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = run()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated()
+        times[name] = time_ms(run, 3, warm=1)
+    (ia, ga), (ib, gb) = out["batched"], out["camera_sequential"]
+    e_img, e_g = max_abs(ib, ia), max_abs(gb, ga)
+    s_g = float(ga.abs().max())
+    passed = (e_img <= 1e-5 and e_g <= 1e-4 * s_g and s_g > 0
+              and bool(torch.isfinite(ia).all()))
+    ws = R.batched_bytes(len(r.view_mats), bins.shape[1], cap, len(f))
+    emit({"phase": "large_f_pipes", "passed": passed,
+          "img_max_abs": e_img, "dv_max_abs": e_g, "dv_scale": s_g,
+          "tolerance": "images 1e-5 abs, gradients 1e-4 x max|g|",
+          "ms": times, "peak_bytes": peaks, "cap": cap, "occupancy": occ,
+          "slots_k": K, "batched_bytes": ws,
+          "device_bytes": R._device_bytes(dev),
+          "batched_share": R.BATCHED_SHARE,
+          "renderer_picks": ("camera_sequential"
+                             if r.camera_sequential(cap, len(f))
+                             else "batched"),
+          "card": card})
+    del out, binned
+    torch.cuda.empty_cache()
+    return passed
+
+
+def phase_large_f(card):
+    """The port's optimize_shape on the teaser's ``ours`` leg at nefertiti
+    for STEPS steps, and one 3-column solve of its banded factor."""
+    from largesteps_torch.core.geometry import compute_matrix
+    from largesteps_torch.core.solvers import CholeskySolver
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.render import kernels as K
+    from largesteps_torch.profiling import LARGE_F_PARAMS, large_f_scene
+    scene = large_f_scene(seed=SEED)
+    params = {**LARGE_F_PARAMS, "steps": STEPS}
+    vs = scene["mesh-source"]["vertices"]
+    M = compute_matrix(vs, scene["mesh-source"]["faces"], alpha=0.98,
+                       device="cuda")
+    slv = CholeskySolver(M)
+    b = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(len(vs), 3)).astype(np.float32), device="cuda")
+    solve_ms = time_ms(lambda: slv.solve(b), 10)
+    del slv, M, b
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    res = optimize_shape(scene, params, device="cuda")
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    losses = res["losses"][:, 0]
+    prof = res["prof"]
+    first = prof["first_step_s"]
+    steady = (STEPS - 1) / (res["wall_time"] - first)
+    passed = (bool(np.isfinite(res["losses"]).all())
+              and losses[-1] < losses[0] and prof["rebin_n"] >= 1
+              and all(n >= STEPS for n in launches.values()))
+    emit({"phase": "large_f", "passed": passed, "steps": STEPS,
+          "faces": int(scene["mesh-source"]["faces"].shape[0]),
+          "verts": int(vs.shape[0]), "solver": prof.get("solver"),
+          "solve_ms": solve_ms, "setup_s": prof["setup_s"],
+          "ref_render_s": prof["ref_render_s"],
+          "topology_s": prof["topology_s"],
+          "host_bins_s": prof["host_bins_s"], "factor_s": prof["factor_s"],
+          "first_step_s": first, "it_per_s": steady,
+          "wall_s": res["wall_time"], "rebin_n": prof["rebin_n"],
+          "rebin_s": prof["rebin_s"],
+          "max_window_disp_px": prof["max_window_disp_px"],
+          "bin_cap": prof["bin_cap"], "peak_bytes": peak,
+          "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+          "launches": launches,
+          "launches_per_step": {k: n / STEPS for k, n in launches.items()},
+          "card": card})
+    return passed, launches, prof["bin_cap"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name, line, ptxas = phase_card()
     card = {"name": name, "nvidia_smi": line}
-    failed = []
     results = {}
     for phase, fn in (("kernels", lambda c: phase_kernels(c, ptxas)),
                       ("render", phase_render_cpu_vs_card),
-                      ("main_path", phase_main_path)):
+                      ("main_path", phase_main_path),
+                      ("large_f_kernels", phase_large_f_kernels),
+                      ("large_f_pipes", phase_large_f_pipes),
+                      ("large_f", phase_large_f)):
+        t0 = time.perf_counter()
         try:
             results[phase] = fn(card)
         except Exception:                 # report, and run the next phase
             traceback.print_exc()
             emit({"phase": phase, "passed": False, "error": "exception"})
             results[phase] = None
+        emit({"phase": f"{phase}_seconds", "s": time.perf_counter() - t0})
     k_ok, table = results["kernels"] or (False, {})
-    if not k_ok:
-        failed.append("kernels")
-    if not results["render"]:
-        failed.append("render")
     m_ok, launches = results["main_path"] or (False, {})
-    if not m_ok:
-        failed.append("main_path")
+    fk_ok, f_table = results["large_f_kernels"] or (False, {})
+    f_ok, f_launches, f_cap = results["large_f"] or (False, {}, None)
+    # the kernels were held at the run's shapes: its cap is theirs
+    fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
+    failed = [p for p, ok in (("kernels", k_ok),
+                              ("render", results["render"]),
+                              ("main_path", m_ok),
+                              ("large_f_kernels", fk_ok),
+                              ("large_f_pipes", results["large_f_pipes"]),
+                              ("large_f", f_ok)) if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
     for k, row in table.items():
         row["launches"] = launches[k]
+        big = f_table[k]
+        row["large_f"] = {key: big[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "cap")}
+        row["large_f"]["launches"] = f_launches[k]
     emit({"kernels": list(table.values())})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,4 +1,4 @@
-"""The optimization driver: the small-F, unsharded, no-remesh path.
+"""The optimization driver: the unsharded, no-remesh path.
 
 Port of ``largesteps_tpu/driver/optimize_shape.py``: render the reference
 images, parameterize v → u with M = I + λL (or optimize the coordinates
@@ -8,14 +8,21 @@ and is fetched at the end; every ``nan_check_every`` steps the host checks
 it for divergence.  Checkpoints use the JAX package's format, so a run of
 either package resumes in the other.
 
-Remeshing, host-computed bins (meshes of ``host_bin_faces`` or more) and
-sharding are later slices (ROADMAP.md Queue 1) and raise
+Meshes of ``host_bin_faces`` faces or more take the large-F path: bins
+computed on the host at epoch build with a ``rebin_margin`` px bbox
+expansion, recomputed on the device every ``rebin_every`` steps or as soon
+as a vertex has moved margin/2 px since (``rebin_auto``; the step emits the
+displacement, which the host reads only once the step has run).  At most
+``max_inflight`` steps are queued on the device.
+
+Remeshing and sharding are later slices (ROADMAP.md Queue 1) and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import time
 import warnings
+from collections import deque
 from dataclasses import dataclass
 from typing import Any
 
@@ -30,6 +37,8 @@ from ..core.solvers import solve
 from ..core.sparse import coo_matvec
 from ..ops.mesh import remove_duplicates
 from ..ops.normals import compute_face_normals, compute_vertex_normals
+from ..render.camera import project
+from ..render.pipeline import bin_triangles_device, bin_triangles_host
 from ..render.renderer import Renderer, Topology
 from .checkpoint import load_checkpoint, save_checkpoint, state_from_numpy
 
@@ -56,7 +65,22 @@ def default_params():
         "bilaplacian": True,
         "record_verts": False,
         "sharding": None,
+        # large-F path: meshes of this many faces or more take precomputed
+        # bins (host at epoch build, device mid-run) instead of the traced
+        # per-step binning
         "host_bin_faces": 32768,
+        "host_bin_cap": None,   # least bin capacity there (None: from the
+                                # occupancy)
+        "rebin_every": 16,      # most steps between rebins
+        "rebin_margin": 4.0,    # bbox expansion (px) that keeps stale bins
+                                # valid while no vertex moves margin/2 px
+        "rebin_auto": True,     # also rebin once a step's measured screen
+                                # displacement since the bins passes margin/2
+        "cull_backfaces": False,  # drop back-facing triangles from those bins
+                                  # (closed meshes only)
+        "max_inflight": 8,      # most steps queued on the device there, so
+                                # the displacement that triggers a rebin is
+                                # read while it is fresh
         "checkpoint_every": 0,  # steps between checkpoints (0 = off)
         "checkpoint_path": None,
         "resume": None,         # checkpoint to resume from
@@ -67,6 +91,43 @@ def default_params():
 # the step's layers as named ranges for torch.profiler (largesteps_torch.
 # profiling reads them); a few microseconds a step when no profiler runs
 _span = torch.profiler.record_function
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mark(dev):
+    """An event recorded behind the work queued so far on the card (None on
+    the CPU, where work is done when its call returns)."""
+    if dev.type != "cuda":
+        return None
+    e = torch.cuda.Event()
+    e.record()
+    return e
+
+
+def _ready(event) -> bool:
+    """Whether the work behind ``event`` has run, without waiting."""
+    return event is None or event.query()
+
+
+def _to_host(t):
+    """A pinned host copy of the device scalar ``t``, queued on the stream
+    without waiting: readable once an event recorded after this call has
+    completed (``t`` itself on the CPU).  ``float()`` of a device tensor
+    would instead wait for every step queued so far."""
+    if t.device.type != "cuda":
+        return t
+    h = torch.empty((), dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
+
+
+def _wait(event):
+    if event is not None:
+        event.synchronize()
 
 
 @dataclass
@@ -81,9 +142,22 @@ class _Epoch:
     M: Any = None
     u: Any = None
     solver: Any = None
+    # the large-F path
+    use_host_bins: bool = False
+    bins: Any = None            # (bins (C,T,cap), counts (C,T), fslots
+                                # (C,F+1,K)) on the device
+    bin_cap: int = 0
+    last_sxy: Any = None        # (C,V,2) px positions at the last host rebin
+    max_window_disp: float = 0.0
+    sxy_dev: Any = None         # (C,V,2) px positions at bin time, device
+    dup_dev: Any = None         # duplicate_idx on the device
+    faces_dev: Any = None       # faces on the device, for device rebins
+    device_rebin_ok: bool = False  # spans fit the device binning's (2, 2)
+    pending_occ: Any = None     # (host occupancy, event) of the last device
+                                # rebin
 
 
-def _check_supported(p, n_faces):
+def _check_supported(p):
     remesh = p["remesh"]
     if (isinstance(remesh, (list, tuple)) and len(remesh)) or \
             (isinstance(remesh, int) and remesh >= 0):
@@ -92,10 +166,6 @@ def _check_supported(p, n_faces):
     if p["sharding"]:
         raise NotImplementedError("sharding is a later slice "
                                   "(ROADMAP.md Queue 1, item 9)")
-    if n_faces >= int(p["host_bin_faces"]):
-        raise NotImplementedError(
-            f"{n_faces} faces need host-computed bins, the large-F slice "
-            f"(ROADMAP.md Queue 1, item 8)")
     if p["optimizer"] == "Adam":
         raise NotImplementedError("plain Adam is still to port "
                                   "(ROADMAP.md Queue 1, item 1)")
@@ -103,15 +173,215 @@ def _check_supported(p, n_faces):
         raise ValueError(f"unknown optimizer {p['optimizer']!r}")
 
 
-def _build_epoch(v_src, f_src, p, renderer, device):
+def _sxy(renderer, v_ndc):
+    """(C, V, 2) pixel positions from NDC (C, V, 4), numpy or torch."""
+    h, w = renderer.res
+    mod = torch if isinstance(v_ndc, torch.Tensor) else np
+    ww = v_ndc[..., 3]
+    safe_w = mod.where(ww == 0, 1.0, ww)
+    return mod.stack([(v_ndc[..., 0] / safe_w + 1.0) * (w / 2.0),
+                      (v_ndc[..., 1] / safe_w + 1.0) * (h / 2.0)], -1)
+
+
+def _host_bins(renderer, v, topology, margin, cap=None, cull=False,
+               return_spans=False):
+    """Host binning of the current geometry: the vertices are projected on
+    the host.  Returns ((bins, counts, fslots) on the device, occupancy,
+    cap, host (C, V, 2) pixel positions[, spans])."""
+    v_host = np.asarray(v, np.float32)
+    mvps = renderer.mvps.cpu().numpy()
+    vh = np.concatenate([v_host, np.ones((v_host.shape[0], 1), np.float32)],
+                        axis=1)
+    v_ndc = np.einsum("cij,vj->cvi", mvps, vh)
+    out = bin_triangles_host(v_ndc, topology.faces, renderer.res, cap=cap,
+                             margin=margin, cull=cull,
+                             return_spans=return_spans, return_slots=True)
+    bins, counts, fslots = out[:3]
+    # the face→slot inverse padded to the device binning's K = 4, so the
+    # pipe's shapes stay when rebins move to the device
+    if fslots.shape[-1] < 4:
+        fslots = np.pad(fslots, ((0, 0), (0, 0), (0, 4 - fslots.shape[-1])),
+                        constant_values=bins.shape[1] * bins.shape[-1])
+    dev = renderer.device
+    up = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)
+    res = ((up(bins, torch.int64), up(counts, torch.int32),
+            up(fslots, torch.int64)), out[3], bins.shape[-1],
+           _sxy(renderer, v_ndc))
+    return res + (out[4],) if return_spans else res
+
+
+def _rebin_device(st, p, renderer, v_render):
+    """Rebin on the device from the (V, 3) device vertices; the occupancy
+    stays on the device until the next rebin reads it."""
+    with torch.no_grad():
+        v_ndc = project(v_render, renderer.mvps)
+        bins, counts, fslots, occ = bin_triangles_device(
+            v_ndc, st.faces_dev, renderer.res, st.bin_cap,
+            margin=float(p["rebin_margin"]), cull=bool(p["cull_backfaces"]))
+        st.bins = (bins, counts, fslots)
+        st.sxy_dev = _sxy(renderer, v_ndc)
+    st.pending_occ = (_to_host(occ), _mark(renderer.device))
+
+
+def _rebin(st, p, renderer, v_render):
+    """Host rebin from (V, 3) host vertices: grows the cap where the bins
+    overflow, and warns where a vertex moved more than margin/2 px since
+    the last host rebin (that window's tiles may have under-drawn)."""
+    margin, cull = p["rebin_margin"], p["cull_backfaces"]
+    bins, occ, cap, sxy = _host_bins(renderer, v_render, st.topology, margin,
+                                     cap=st.bin_cap, cull=cull)
+    if occ > st.bin_cap:                        # overflow: resize (rare)
+        bins, occ, cap, sxy = _host_bins(renderer, v_render, st.topology,
+                                         margin, cull=cull)
+        st.bin_cap = cap
+    if st.bins is not None:
+        # keep K: a smaller one would only rebuild the pipe
+        k_old, k_new = st.bins[2].shape[-1], bins[2].shape[-1]
+        if k_new < k_old and bins[0].shape == st.bins[0].shape:
+            sentinel = bins[0].shape[1] * bins[0].shape[-1]
+            fs = torch.nn.functional.pad(bins[2], (0, k_old - k_new),
+                                         value=sentinel)
+            bins = (bins[0], bins[1], fs)
+    if st.last_sxy is not None and st.last_sxy.shape == sxy.shape:
+        disp = float(np.max(np.abs(sxy - st.last_sxy)))
+        st.max_window_disp = max(st.max_window_disp, disp)
+        if disp > 0.5 * float(margin):
+            warnings.warn(
+                f"vertices moved up to {disp:.2f} px between host rebins "
+                f"(> margin/2 = {0.5 * float(margin):.2f}); the last "
+                f"{p['rebin_every']}-step window may have under-drawn tiles "
+                f"- lower rebin_every or raise rebin_margin")
+    st.last_sxy = sxy
+    st.bins = bins
+    with torch.no_grad():
+        st.sxy_dev = _sxy(renderer, project(torch.as_tensor(
+            np.asarray(v_render, np.float32), device=renderer.device),
+            renderer.mvps))
+
+
+def _rebin_due(st, p, since, disp_q) -> bool:
+    """Whether to rebin now: ``rebin_every`` steps since the last rebin, or
+    (``rebin_auto``) a step that has run moved a vertex more than margin/2
+    px since the bins were made.  Reads only the host copies of the
+    displacements whose steps have run, oldest first, and stops at the
+    first still queued."""
+    if p["rebin_every"] and since >= int(p["rebin_every"]):
+        return True
+    if not p["rebin_auto"]:
+        return False
+    due = False
+    while disp_q and _ready(disp_q[0][1]):
+        d = float(disp_q.popleft()[0])
+        st.max_window_disp = max(st.max_window_disp, d)
+        due = due or d > 0.5 * float(p["rebin_margin"])
+    return due
+
+
+def _bins_overflowed(st) -> bool:
+    """Whether the last device rebin's bins overflowed their cap, as far as
+    is known without waiting: a rebin whose occupancy has not been read yet
+    counts as not overflowed.  An overflow sends this rebin to the host,
+    which grows the cap."""
+    if st.pending_occ is None or not _ready(st.pending_occ[1]):
+        return False
+    occ = int(st.pending_occ[0])
+    st.pending_occ = None
+    if occ > st.bin_cap:
+        warnings.warn(f"bin occupancy {occ} exceeded cap {st.bin_cap} during "
+                      f"the last window; growing")
+        return True
+    return False
+
+
+class _Rebins:
+    """The large-F path's rebin policy around the step loop (a no-op on
+    other epochs).  :meth:`before` rebins when :func:`_rebin_due` says so:
+    on the device, or on the host where the tile spans do not fit the
+    device binning or the last device rebin overflowed.  :meth:`after`
+    queues the step's displacement as a host copy with an event, and keeps
+    at most ``max_inflight`` steps queued.  ``prof`` gains ``rebin_s`` and
+    ``rebin_n``."""
+
+    def __init__(self, st, p, renderer, theta, start_it, prof):
+        self.st, self.p, self.renderer, self.theta = st, p, renderer, theta
+        self.start_it = self.last_it = start_it
+        self.prof = prof
+        prof.setdefault("rebin_s", 0.0)
+        prof.setdefault("rebin_n", 0)
+        self.disp_q = deque()       # (host displacement, event) a step
+        self.inflight = deque()     # events of the queued steps
+
+    def before(self, it, v_last):
+        st, p, theta = self.st, self.p, self.theta
+        if not (st.use_host_bins and it > self.start_it and _rebin_due(
+                st, p, it - self.last_it, self.disp_q)):
+            return
+        t0 = time.perf_counter()
+        with _span("rebin"):
+            tr = theta["tr"].detach() if p["use_tr"] \
+                else torch.zeros_like(theta["tr"])
+            if st.device_rebin_ok and not _bins_overflowed(st):
+                _rebin_device(st, p, self.renderer, v_last[st.dup_dev] + tr)
+            else:
+                _rebin(st, p, self.renderer,
+                       (v_last.cpu()[st.dup_dev.cpu()] + tr.cpu()).numpy())
+                st.pending_occ = None
+        self.last_it = it
+        self.disp_q.clear()
+        self.prof["rebin_s"] += time.perf_counter() - t0
+        self.prof["rebin_n"] += 1
+
+    def after(self, disp):
+        if not self.st.use_host_bins:
+            return
+        disp = _to_host(disp)
+        event = _mark(self.renderer.device)
+        self.disp_q.append((disp, event))
+        self.inflight.append(event)
+        if len(self.inflight) > int(self.p["max_inflight"]):
+            _wait(self.inflight.popleft())
+
+
+def _build_epoch(v_src, f_src, p, renderer, device, setup):
+    """The epoch of (v_src, f_src); ``setup`` gains the seconds of its
+    topology (``topology_s``: duplicates, adjacency, Laplacian), its host
+    bins (``host_bins_s``) and its RCM and factor (``factor_s``)."""
+    t0 = time.perf_counter()
     v_unique, f_unique, duplicate_idx = remove_duplicates(v_src, f_src)
     st = _Epoch(v_unique=v_unique, f_unique=f_unique,
                 duplicate_idx=duplicate_idx,
                 f_src=np.asarray(f_src, np.int32), topology=Topology(f_src))
     st.L = laplacian_uniform(len(v_unique), f_unique, device=device)
-    # size the bins for this epoch before the first render: an overflowing
-    # bin under-draws its tile with no signal
-    renderer.check_overflow(v_src, st.topology)
+    _sync(device)
+    setup["topology_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    st.use_host_bins = st.topology.n_faces >= int(p["host_bin_faces"])
+    if st.use_host_bins:
+        margin, cull = p["rebin_margin"], p["cull_backfaces"]
+        st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
+            renderer, v_src, st.topology, margin, cap=p["host_bin_cap"],
+            cull=cull, return_spans=True)
+        if occ > st.bin_cap:          # the configured cap is too small
+            st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
+                renderer, v_src, st.topology, margin, cull=cull,
+                return_spans=True)
+        # mid-run rebins run on the device when the tile spans fit its
+        # static (2, 2) bound
+        st.device_rebin_ok = spans[0] <= 2 and spans[1] <= 2
+        st.dup_dev = torch.as_tensor(duplicate_idx.astype(np.int64),
+                                     device=device)
+        st.faces_dev = torch.as_tensor(st.topology.faces.astype(np.int64),
+                                       device=device)
+        with torch.no_grad():
+            st.sxy_dev = _sxy(renderer, project(torch.as_tensor(
+                v_src, device=device), renderer.mvps))
+    else:
+        # size the bins before the first render: an overflowing bin
+        # under-draws its tile with no signal
+        renderer.check_overflow(v_src, st.topology)
+    _sync(device)
+    setup["host_bins_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     if p["smooth"]:
         st.M = compute_matrix(v_unique, f_unique, lambda_=p["lambda"],
                               alpha=p["alpha"], device=device)
@@ -119,17 +389,22 @@ def _build_epoch(v_src, f_src, p, renderer, device):
             st.M, torch.as_tensor(v_unique, dtype=torch.float32,
                                   device=device))
         st.solver = get_solver(st.M, p["solver"])   # factor once per epoch
+    _sync(device)
+    setup["factor_s"] = time.perf_counter() - t0
     return st
 
 
 def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
-    """One optimizer step; returns the device scalars (image loss, logged
-    bilaplacian magnitude)."""
+    """One optimizer step.  Returns device tensors: ((image loss, logged
+    bilaplacian magnitude), the solved vertices of this step's forward, and
+    on the large-F path the largest screen displacement (px) of a rendered
+    vertex since the bins were made (0 elsewhere))."""
     dev = renderer.device
     dup = torch.as_tensor(st.duplicate_idx.astype(np.int64), device=dev)
     f_unique = torch.as_tensor(st.f_unique.astype(np.int64), device=dev)
     reg = float(p["reg"])
     l1 = p["loss"] == "l1"
+    zero = torch.zeros((), device=dev)
 
     def step():
         optimizer.zero_grad(set_to_none=True)
@@ -142,7 +417,9 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
         with _span("render"):
             tr = theta["tr"] if p["use_tr"] \
                 else torch.zeros_like(theta["tr"])
-            imgs = renderer.render(tr + v_unique[dup], n_opt, st.topology)
+            v_render = tr + v_unique[dup]
+            imgs = renderer.render(v_render, n_opt, st.topology,
+                                   bins=st.bins if st.use_host_bins else None)
         with _span("loss"):
             diff = imgs - ref_imgs
             im_loss = diff.abs().mean() if l1 else diff.square().mean()
@@ -156,8 +433,18 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
             if not p["use_tr"]:
                 theta["tr"].grad = torch.zeros_like(theta["tr"])
             optimizer.step()
+        disp = zero
+        if st.use_host_bins:
+            with _span("displacement"), torch.no_grad():
+                sxy = _sxy(renderer, project(v_render.detach(),
+                                             renderer.mvps))
+                disp = (sxy - st.sxy_dev).abs().max()
+        # the coordinates themselves are optimized in place: keep this
+        # step's copy
+        v_out = v_unique.detach() if p["smooth"] \
+            else v_unique.detach().clone()
         # always log the bilaplacian magnitude, like reference main.py:200
-        return im_loss.detach(), Lv.detach().square().mean()
+        return (im_loss.detach(), Lv.detach().square().mean()), v_out, disp
 
     return step
 
@@ -183,6 +470,7 @@ class _Run:
     step: Any
     step_size: float
     resume: Any
+    setup: dict                 # seconds of the setup's parts
 
 
 def _prepare(scene, p, dev) -> _Run:
@@ -194,7 +482,7 @@ def _prepare(scene, p, dev) -> _Run:
     if resume is not None:
         v_src = resume["v_src"].astype(np.float32)
         f_src = resume["f_src"].astype(np.int32)
-    _check_supported(p, f_src.shape[0])
+    _check_supported(p)
 
     f_ref = np.asarray(scene["mesh-target"]["faces"], np.int32)
     v_ref = torch.as_tensor(np.asarray(scene["mesh-target"]["vertices"],
@@ -209,10 +497,19 @@ def _prepare(scene, p, dev) -> _Run:
         renderer = Renderer(scene, shading=p["shading"], boost=p["boost"],
                             device=dev)
         ref_topo = Topology(f_ref)
-        renderer.check_overflow(v_ref, ref_topo)
-        ref_imgs = renderer.render(v_ref, n_ref, ref_topo)
+        t0 = time.perf_counter()
+        if ref_topo.n_faces >= int(p["host_bin_faces"]):
+            ref_bins = _host_bins(renderer, v_ref.cpu().numpy(), ref_topo,
+                                  0.0)[0]
+            ref_imgs = renderer.render(v_ref, n_ref, ref_topo, bins=ref_bins)
+            del ref_bins
+        else:
+            renderer.check_overflow(v_ref, ref_topo)
+            ref_imgs = renderer.render(v_ref, n_ref, ref_topo)
+        _sync(dev)
+        setup = {"ref_render_s": time.perf_counter() - t0}
 
-    st = _build_epoch(v_src, f_src, p, renderer, dev)
+    st = _build_epoch(v_src, f_src, p, renderer, dev, setup)
     step_size = float(p["step_size"])
     if resume is not None:
         step_size = float(resume["meta"]["step_size"])
@@ -227,11 +524,17 @@ def _prepare(scene, p, dev) -> _Run:
     optimizer = AdamUniform([theta["tr"], theta["u"]], lr=step_size)
     if resume is not None:
         load_moments(optimizer)
+        if st.use_host_bins:
+            # the epoch's bins are of v_src; the restored vertices may be
+            # far from it, so bin them before the first step
+            v = _solved(st, theta, p).cpu().numpy()[st.duplicate_idx]
+            tr = theta["tr"].detach().cpu().numpy() if p["use_tr"] else 0.0
+            _rebin(st, p, renderer, v + tr)
     step = _make_step(st, p, renderer, ref_imgs, theta, optimizer)
     return _Run(st=st, renderer=renderer, ref_imgs=ref_imgs,
                 v_ref=v_ref, f_ref=f_ref, v_src=v_src, f_src=f_src,
                 theta=theta, optimizer=optimizer, step=step,
-                step_size=step_size, resume=resume)
+                step_size=step_size, resume=resume, setup=setup)
 
 
 def optimize_shape(scene, params=None, device=None):
@@ -248,6 +551,7 @@ def optimize_shape(scene, params=None, device=None):
     t_setup0 = time.perf_counter()
     run = _prepare(scene, p, dev)
     st, theta, optimizer, step = run.st, run.theta, run.optimizer, run.step
+    renderer = run.renderer
     v_src, f_src, resume = run.v_src, run.f_src, run.resume
     step_size = run.step_size
 
@@ -260,16 +564,17 @@ def optimize_shape(scene, params=None, device=None):
     result = {"vert_steps": [], "tr_steps": [], "f": [f_src.copy()],
               "losses": [], "im_ref": run.ref_imgs.cpu().numpy(),
               "v_ref": run.v_ref.cpu().numpy(), "f_ref": run.f_ref.copy()}
-    prof = {"first_step_s": 0.0,
-            "setup_s": time.perf_counter() - t_setup0}
+    prof = {"first_step_s": 0.0, "rebin_s": 0.0, "rebin_n": 0,
+            "setup_s": time.perf_counter() - t_setup0, **run.setup}
 
     def checkpoint(it):
         save_checkpoint(p["checkpoint_path"], theta=theta,
                         optimizer=optimizer, v_src=v_src, f_src=f_src,
                         step=it, step_size=step_size, remesh_schedule=[])
 
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     it = start_it
+    rebins = _Rebins(st, p, renderer, theta, start_it, prof)
+    v_last = None               # solved vertices of the last step
     loss_log = []
     t0 = time.perf_counter()
     t = t0
@@ -277,10 +582,12 @@ def optimize_shape(scene, params=None, device=None):
         if p["checkpoint_every"] and p["checkpoint_path"] and it > start_it \
                 and it % p["checkpoint_every"] == 0:
             checkpoint(it)
+        rebins.before(it, v_last)
         t_st = time.perf_counter()
-        losses = step()
+        losses, v_last, disp = step()
+        rebins.after(disp)
         if it == start_it:
-            sync()
+            _sync(dev)
             prof["first_step_s"] = time.perf_counter() - t_st
         loss_log.append(torch.stack(losses))
         if p["nan_check_every"] and (it + 1) % int(p["nan_check_every"]) == 0:
@@ -293,15 +600,14 @@ def optimize_shape(scene, params=None, device=None):
                 it += 1
                 break
         if p["record_verts"]:
-            v_now = _solved(st, theta, p)
             result["vert_steps"].append(
-                v_now.cpu().numpy()[st.duplicate_idx])
+                v_last.cpu().numpy()[st.duplicate_idx])
             result["tr_steps"].append(theta["tr"].detach().cpu().numpy())
         it += 1
         if steps < 0:
-            sync()       # a time budget counts executed seconds
+            _sync(dev)       # a time budget counts executed seconds
         t = time.perf_counter()
-    sync()
+    _sync(dev)
     t = time.perf_counter()
 
     if p["checkpoint_every"] and p["checkpoint_path"]:
@@ -314,5 +620,12 @@ def optimize_shape(scene, params=None, device=None):
     result["tr"] = theta["tr"].detach().cpu().numpy()
     result["iters"] = it
     result["wall_time"] = t - t0
+    prof["max_window_disp_px"] = st.max_window_disp
+    prof["bin_cap"] = st.bin_cap if st.use_host_bins else renderer.bin_cap
+    if st.solver is not None:
+        big = st.solver._big
+        prof["solver"] = {"tier": st.solver.tier,
+                          "block": None if big is None else big.B,
+                          "blocks": None if big is None else big.nb}
     result["prof"] = prof
     return result

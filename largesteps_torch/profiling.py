@@ -1,11 +1,15 @@
-"""Where a main-path step spends its time on the card.
+"""Where a step spends its time on the card.
 
-    python -m largesteps_torch.profiling [--steps 10] [--trace DIR]
+    python -m largesteps_torch.profiling [--steps 10] [--trace DIR] [--large-f]
 
 Builds the main-path scene (the ``bench.py:bench_step`` slice: icosphere-4
 fitted to gourd-4, 13 views at 256², shaded, boost 3, λ = 19, l2 loss,
-AdamUniform), warms the step up, then runs ``--steps`` steps under
-``torch.profiler`` and prints one JSON line:
+AdamUniform) or, with ``--large-f``, the large-F scene (the teaser's
+``nefertiti`` ``ours`` leg: icosphere-7, 327,680 faces, fitted to gourd-7,
+13 views at 256², boost 3, α = 0.98, l1 loss, AdamUniform at 2e-3, through
+host bins, the banded solver and the prebinned pipe), warms the step up,
+then runs ``--steps`` steps under ``torch.profiler`` and prints one JSON
+line:
 
 * ``wall_ms_per_step``: host clock around the profiled steps, ending in
   ``torch.cuda.synchronize()`` (the profiler's own overhead included);
@@ -14,12 +18,17 @@ AdamUniform), warms the step up, then runs ``--steps`` steps under
   of the wall time;
 * ``spans``: per layer of the step (the ``record_function`` ranges of
   ``driver/optimize_shape.py``: solve, normals, render, loss, backward,
-  optimizer), its host ms and the device ms of the kernels it launched;
+  optimizer, displacement, rebin), its host ms and the device ms of the
+  kernels it launched;
 * ``kernels``: the device ms per step of the heaviest kernels by name.
 
-Numbers are read from the exported Chrome trace (``cat`` kernel, gpu_memcpy,
-gpu_memset, user_annotation, gpu_user_annotation), which ``--trace`` keeps.
-Runs on the card only.
+The large-F steps run inside the driver's rebin policy, as
+``optimize_shape`` runs them: its rebins between steps (span ``rebin``,
+counted in ``rebins``, their device ms each in ``rebin_device_ms_each``)
+and its wait on the step ``max_inflight`` back are in the profiled
+window.  Numbers are read from the exported Chrome trace
+(``cat`` kernel, gpu_memcpy, gpu_memset, user_annotation,
+gpu_user_annotation), which ``--trace`` keeps.  Runs on the card only.
 """
 from __future__ import annotations
 
@@ -33,20 +42,33 @@ from collections import defaultdict
 import torch
 
 from ._device import resolve_device
-from .driver.optimize_shape import _prepare, default_params
+from .driver.optimize_shape import _prepare, _Rebins, default_params
 from .io.synth import make_scene
 
-__all__ = ["main_path_scene", "MAIN_PATH_PARAMS", "profile_main_path"]
+__all__ = ["main_path_scene", "MAIN_PATH_PARAMS", "large_f_scene",
+           "LARGE_F_PARAMS", "profile_main_path"]
 
 MAIN_PATH_PARAMS = {"step_size": 0.03, "lambda": 19.0, "boost": 3,
                     "loss": "l2", "optimizer": "AdamUniform"}
-SPANS = ("solve", "normals", "render", "loss", "backward", "optimizer")
+# figures/teaser/generate_data.py:19-23, the ``ours`` leg; every other
+# setting at the driver's defaults
+LARGE_F_PARAMS = {"boost": 3, "alpha": 0.98, "loss": "l1", "smooth": True,
+                  "step_size": 2e-3, "optimizer": "AdamUniform"}
+SPANS = ("solve", "normals", "render", "loss", "backward", "optimizer",
+         "displacement", "rebin")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def main_path_scene(n_views: int = 13, seed: int = 0):
     """The scene of ``bench.py:bench_step``."""
     return make_scene(source=("icosphere", 4), target=("gourd", 4),
+                      n_views=n_views, res=256, seed=seed)
+
+
+def large_f_scene(n_views: int = 13, seed: int = 0):
+    """The teaser's ``nefertiti`` scene (``figures/common.py:41``):
+    icosphere-7 (163,842 verts, 327,680 faces) fitted to gourd-7."""
+    return make_scene(source=("icosphere", 7), target=("gourd", 7),
                       n_views=n_views, res=256, seed=seed)
 
 
@@ -92,33 +114,53 @@ def _summarize(trace: dict, steps: int, wall_s: float) -> dict:
 
 
 def profile_main_path(steps: int = 10, warmup: int = 5, trace_dir=None,
-                      device=None) -> dict:
-    """Profile ``steps`` steady steps of the main path (see module doc)."""
+                      device=None, large_f: bool = False) -> dict:
+    """Profile ``steps`` steady steps of the main path, or of the large-F
+    path with ``large_f`` (see module doc)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("profiling measures the card; no CUDA device")
     from torch.profiler import ProfilerActivity, profile
     p = default_params()
-    p.update(MAIN_PATH_PARAMS)
-    run = _prepare(main_path_scene(), p, dev)
-    for _ in range(warmup):
-        run.step()
+    p.update(LARGE_F_PARAMS if large_f else MAIN_PATH_PARAMS)
+    run = _prepare(large_f_scene() if large_f else main_path_scene(), p, dev)
+    counts = {}
+    rebins = _Rebins(run.st, p, run.renderer, run.theta, 0, counts)
+    v_last = None
+
+    def loop(its):
+        nonlocal v_last
+        for it in its:
+            rebins.before(it, v_last)
+            _, v_last, disp = run.step()
+            rebins.after(disp)
+
+    loop(range(warmup))
     torch.cuda.synchronize()
+    n_warm = counts["rebin_n"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            run.step()
+        loop(range(warmup, warmup + steps))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out_dir = trace_dir or tempfile.mkdtemp()
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, "main_path_trace.json")
+    path = os.path.join(out_dir, ("large_f" if large_f else "main_path")
+                        + "_trace.json")
     prof.export_chrome_trace(path)
     with open(path) as fh:
         summary = _summarize(json.load(fh), steps, wall)
     summary["trace"] = path if trace_dir else None
     summary["card"] = torch.cuda.get_device_name(dev)
+    summary["path"] = "large_f" if large_f else "main_path"
+    summary["solver"] = run.st.solver.tier if run.st.solver else None
+    summary["bin_cap"] = run.st.bin_cap if run.st.use_host_bins \
+        else run.renderer.bin_cap
+    summary["rebins"] = counts["rebin_n"] - n_warm
+    summary["rebin_device_ms_each"] = (
+        summary["spans"]["rebin"]["device_ms"] * steps / summary["rebins"]
+        if summary["rebins"] else None)
     return summary
 
 
@@ -127,9 +169,11 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", default=None,
                     help="directory that keeps the Chrome trace")
+    ap.add_argument("--large-f", action="store_true",
+                    help="profile the large-F path (nefertiti) instead")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_main_path(args.steps, trace_dir=args.trace)),
-          flush=True)
+    print(json.dumps(profile_main_path(args.steps, trace_dir=args.trace,
+                                       large_f=args.large_f)), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,17 +1,21 @@
-"""The fused render pipeline of the main path: setup, binning, the four
-per-tile kernels, and the glue that chains their gradients to vertices.
+"""The fused render pipelines: setup, binning, the four per-tile kernels, and
+the glue that chains their gradients to vertices.
 
-Port of the non-prebinned, unsharded branch of
-``largesteps_tpu/render/pallas_core.py`` (``triangle_setup``/``_setup_core``
-lines 102-190, ``bin_triangles`` 193-242, ``suggest_cap`` and
-``check_bin_overflow`` 525-545, ``_setup_and_bin`` 1172-1198,
-``_chain_planes`` 1201-1235, ``build_incidence`` 1238-1257,
-``_scatter_via_faces`` 1260-1289 and ``make_render_pipeline`` 1935-2116).
+Port of ``largesteps_tpu/render/pallas_core.py``, unsharded: the setup
+(``triangle_setup``/``_setup_core`` lines 102-190), the traced binning
+(``bin_triangles`` 193-242, ``suggest_cap`` and ``check_bin_overflow``
+525-545, ``_setup_and_bin`` 1172-1198), the large-F binning
+(``setup_from_bins`` 245-273, ``bin_triangles_host`` 276-408,
+``bin_triangles_device`` 411-522), the backward glue (``_chain_planes``
+1201-1235, ``build_incidence`` 1238-1257, ``_scatter_via_faces`` and
+``_scatter_via_slots`` 1260-1321), ``make_render_pipeline`` with and
+without precomputed bins (1903-2116) and the camera-sequential
+``make_render_pipeline_big`` (2134-2304).
 
 Layouts are the JAX package's, so tests compare like with like: records
-(C, TY, TX, cap, 32) with the column maps below, bins (C, TY, TX, cap) with
-−1 padding, 32×128 pixel tiles.  The kernels themselves live in
-:mod:`largesteps_torch.render.kernels`.
+(C, TY, TX, cap, 32) with the column maps below, bins (C, TY, TX, cap) or
+(C, T, cap) with −1 padding, 32×128 pixel tiles.  The kernels themselves
+live in :mod:`largesteps_torch.render.kernels`.
 
 rec_fwd columns: 0-2 q0a q0b q0c · 3-5 q1a q1b q1c · 6-8 sa sb sc (the
 perspective denominator) · 9-11 da db dc (depth z/w) · 12 ymin 13 ymax
@@ -32,24 +36,27 @@ from . import kernels
 from .kernels import TILE_H, TILE_W, BIG
 
 __all__ = ["triangle_setup", "bin_triangles", "setup_and_bin",
+           "setup_from_bins", "bin_triangles_host", "bin_triangles_device",
            "chain_planes", "build_incidence", "scatter_via_faces",
-           "suggest_cap", "check_bin_overflow", "RenderPipeline"]
+           "scatter_via_slots", "suggest_cap", "check_bin_overflow",
+           "RenderPipeline", "RenderPipelineBig"]
 
 
-def triangle_setup(v_clip, faces, attrs, opp, height, width):
+def triangle_setup(v_clip, faces, attrs, opp, height, width, need_fwd=True):
     """Per-triangle records for every camera.
 
     v_clip (C, V, 4), faces (F, 3) int64, attrs (V, 3), opp (F, 3) int64.
-    Returns (rec_fwd (C, F, 32), rec_bwd (C, F, 32)).
+    Returns (rec_fwd (C, F, 32), rec_bwd (C, F, 32)); rec_fwd is None with
+    ``need_fwd=False``.
     """
     F = faces.shape[0]
     fid = torch.arange(1, F + 1, dtype=torch.float32, device=v_clip.device)
     opp1 = (opp + 1).to(torch.float32)                  # 0 = boundary
     return _setup_core(v_clip[:, faces], attrs[faces], opp1, fid,
-                       height, width)
+                       height, width, need_fwd)
 
 
-def _setup_core(tri, A, opp1, fid, height, width):
+def _setup_core(tri, A, opp1, fid, height, width, need_fwd=True):
     """Record assembly from gathered corners: tri (C, N, 3, 4) clip-space
     corners, A (N, 3, 3) corner attributes, opp1 (N, 3), fid (N,) with 0 for
     a dead slot (rigged to an empty y-range and no coverage)."""
@@ -109,7 +116,7 @@ def _setup_core(tri, A, opp1, fid, height, width):
     pad = torch.zeros_like(area)
     opp1 = opp1.expand(*shape, 3)
 
-    rec_fwd = torch.stack([
+    rec_fwd = None if not need_fwd else torch.stack([
         q0a, q0b, q0c, q1a, q1b, q1c, sa, sb, sc, da, db, dc,
         ymin, ymax, fidb, pad,
         P[..., 0], Q[..., 0], R[..., 0], P[..., 1], Q[..., 1], R[..., 1],
@@ -195,6 +202,244 @@ def setup_and_bin(v_clip, faces, attrs, opp, height, width, cap):
             torch.clamp(counts, max=cap).to(torch.int32))
 
 
+def _gather_rows(rec, bins, fill):
+    """Whole 32-float record rows by bins: rec (C, F, 32), bins (C, T, cap)
+    with −1 for a dead slot, which gets the row ``fill``."""
+    C, F, _ = rec.shape
+    ext = torch.cat([rec, fill.expand(C, 1, 32)], dim=1)
+    ids = torch.where(bins >= 0, bins, F)
+    cam = torch.arange(C, device=rec.device)[:, None, None]
+    return ext[cam, ids]
+
+
+def setup_from_bins(v_clip, faces, attrs, opp, bins, height, width,
+                    need_fwd=True):
+    """Setup and record gather by precomputed bins (the large-F path).
+
+    The records are built face-major, as :func:`triangle_setup` builds
+    them, and whole rows are gathered by ``bins`` (C, T, cap) (−1 = dead
+    slot).  Dead slots get an empty y-range in rfb (a zeroed row would read
+    as y = 0) and zeros in rbb.  Returns (rfb, rbb), each (C, T, cap, 32);
+    rfb is None with ``need_fwd=False`` (the backward's recompute).
+    """
+    rec_fwd, rec_bwd = triangle_setup(v_clip, faces, attrs, opp, height,
+                                      width, need_fwd)
+    rbb = _gather_rows(rec_bwd, bins, rec_bwd.new_zeros(32))
+    if not need_fwd:
+        return None, rbb
+    dead = rec_fwd.new_zeros(32)
+    dead[12], dead[13] = 1e9, -1e9
+    return _gather_rows(rec_fwd, bins, dead), rbb
+
+
+def bin_triangles_host(v_ndc, faces, resolution, cap=None, margin=0.0,
+                       chunk=8, cull=False, return_spans=False,
+                       return_slots=False):
+    """Host (numpy) binning of all cameras: the large-F path's epoch bins.
+
+    Each face enters the bins of every tile its bbox, expanded by 1 px (the
+    antialias pairs) plus ``margin`` px, overlaps; a margin keeps the bins
+    valid for every step in which no vertex moves more than margin/2 px.
+    Each bin is ordered by ymin (ties by entry order).  v_ndc (C, V, 4)
+    numpy.  Returns (bins (C, T, cap) int32 with −1 padding, counts (C, T)
+    int32 clamped to cap, occ); with ``return_slots`` (bins, counts, fslots
+    (C, F+1, K) int32 flat slot indices with sentinel T·cap, occ); with
+    ``return_spans`` also (span_y, span_x), the most tiles a face spans.
+    ``cap=None`` sizes the bins from the occupancy (:func:`suggest_cap`).
+    """
+    height, width = resolution
+    ty_n, tx_n = height // TILE_H, width // TILE_W
+    T = ty_n * tx_n
+    v_ndc = np.asarray(v_ndc)
+    faces = np.asarray(faces)
+    C = v_ndc.shape[0]
+
+    # planar per-corner gathers (a (C, F, 3, 4) fancy index is far slower)
+    vx = np.ascontiguousarray(v_ndc[..., 0])
+    vy = np.ascontiguousarray(v_ndc[..., 1])
+    vw = np.ascontiguousarray(v_ndc[..., 3])
+    sx, sy, valid = [], [], True
+    for c in range(3):
+        idx = faces[:, c]
+        w = vw[:, idx]                           # (C, F)
+        valid = valid & (w > 1e-9)
+        w[w == 0] = 1.0
+        sx.append(vx[:, idx] / w)
+        sy.append(vy[:, idx] / w)
+    area = (sx[1] - sx[0]) * (sy[2] - sy[0]) \
+        - (sy[1] - sy[0]) * (sx[2] - sx[0])
+    if cull:
+        # closed meshes: a back face never wins the z-test; front faces have
+        # positive screen-space area under the negated-x projection
+        valid &= area > 0.0
+    else:
+        valid &= np.abs(area) >= 1e-12
+    exp = 1.0 + margin                           # 1 px antialias + margin
+    xmin = (np.minimum(np.minimum(sx[0], sx[1]), sx[2]) + 1.0) \
+        * (width / 2.0) - 0.5 - exp
+    xmax = (np.maximum(np.maximum(sx[0], sx[1]), sx[2]) + 1.0) \
+        * (width / 2.0) - 0.5 + exp
+    ymin = (np.minimum(np.minimum(sy[0], sy[1]), sy[2]) + 1.0) \
+        * (height / 2.0) - 0.5 - exp
+    ymax = (np.maximum(np.maximum(sy[0], sy[1]), sy[2]) + 1.0) \
+        * (height / 2.0) - 0.5 + exp
+
+    # inclusive tile ranges, the traced overlap test's
+    valid &= (xmax >= 0) & (ymax >= 0) \
+        & (xmin <= width - 1) & (ymin <= height - 1)
+    jlo = np.clip(np.floor(xmin).astype(np.int64) // TILE_W, 0, tx_n - 1)
+    jhi = np.clip(np.floor(xmax).astype(np.int64) // TILE_W, 0, tx_n - 1)
+    ilo = np.clip(np.floor(ymin).astype(np.int64) // TILE_H, 0, ty_n - 1)
+    ihi = np.clip(np.floor(ymax).astype(np.int64) // TILE_H, 0, ty_n - 1)
+
+    span_y = int(np.max((ihi - ilo + 1) * valid, initial=1))
+    span_x = int(np.max((jhi - jlo + 1) * valid, initial=1))
+
+    tile_ids, face_ids, cam_ids, ent_ids = [], [], [], []
+    F = faces.shape[0]
+    fidx = np.broadcast_to(np.arange(F, dtype=np.int64), (C, F))
+    cidx = np.broadcast_to(np.arange(C, dtype=np.int64)[:, None], (C, F))
+    cell = 0
+    for dy in range(span_y):
+        for dx in range(span_x):
+            ti = ilo + dy
+            tj = jlo + dx
+            m = valid & (ti <= ihi) & (tj <= jhi)
+            tile_ids.append(ti[m] * tx_n + tj[m])
+            face_ids.append(fidx[m])
+            cam_ids.append(cidx[m])
+            # (cam, face, span cell) of each entry, for the face→slot inverse
+            ent_ids.append((cidx[m] * F + fidx[m]) * (span_y * span_x) + cell)
+            cell += 1
+    tile_id = np.concatenate(tile_ids)
+    face_id = np.concatenate(face_ids)
+    cam_id = np.concatenate(cam_ids)
+    ent_id = np.concatenate(ent_ids)
+    key = cam_id * T + tile_id
+    counts = np.bincount(key, minlength=C * T).reshape(C, T)
+    occ = int(counts.max(initial=0))
+    if cap is None:
+        cap = suggest_cap(occ, chunk)
+
+    # ymin order within each tile, as the traced binning's
+    ymin_b = ymin[cam_id, face_id].astype(np.float32)
+    order = np.lexsort((ymin_b, key))
+    key_s = key[order]
+    face_s = face_id[order]
+    starts = np.zeros(C * T + 1, np.int64)
+    np.cumsum(counts.reshape(-1), out=starts[1:])
+    pos = np.arange(len(key_s)) - starts[key_s]
+    keep = pos < cap
+    bins = np.full((C * T, cap), -1, np.int32)
+    bins[key_s[keep], pos[keep]] = face_s[keep]
+    counts = np.minimum(counts, cap).astype(np.int32)
+    out = (bins.reshape(C, T, cap), counts.reshape(C, T), occ)
+    if return_slots:
+        K = span_y * span_x
+        fslots = np.full((C, F + 1, K), T * cap, np.int32)
+        ent_s = ent_id[order]
+        fs_cam = (ent_s // K) // F
+        fs_face = (ent_s // K) % F
+        fs_cell = ent_s % K
+        flat = (key_s % T) * cap + pos
+        k3 = keep & (flat < T * cap)
+        fslots[fs_cam[k3], fs_face[k3], fs_cell[k3]] = flat[k3]
+        out = out[:2] + (fslots, occ)
+    if return_spans:
+        return out + ((span_y, span_x),)
+    return out
+
+
+def bin_triangles_device(v_ndc, faces, resolution, cap, margin=0.0,
+                         span=(2, 2), cull=False):
+    """Device binning of all cameras: the large-F path's mid-run rebins.
+
+    Each face emits ``span_y·span_x`` candidate entries, one per cell of its
+    clipped tile range (the driver checks at epoch build that the spans fit
+    this static bound).  One stable sort of the keys tile·4096 + ⌊ymin⌋
+    per camera orders the entries by tile, then y, then entry; the bins are
+    gathered from the sorted faces, and the face→slot inverse is scattered
+    back through the sort's permutation.  The result equals the JAX
+    package's slot for slot.
+
+    v_ndc (C, V, 4), faces (F, 3) int64, both on one device.  Returns
+    (bins (C, T, cap) int64 with −1 padding, counts (C, T) int32 clamped to
+    cap, fslots (C, F+1, span_y·span_x) int64 flat slot indices with
+    sentinel T·cap, occ: the largest unclamped count, a 0-d device tensor).
+    """
+    height, width = resolution
+    ty_n, tx_n = height // TILE_H, width // TILE_W
+    T = ty_n * tx_n
+    C = v_ndc.shape[0]
+    F = faces.shape[0]
+    span_y, span_x = span
+    K = span_y * span_x
+    dev = v_ndc.device
+    tri = v_ndc[:, faces]                                 # (C, F, 3, 4)
+    w = tri[..., 3]
+    iw = 1.0 / torch.where(w == 0, torch.ones_like(w), w)
+    sx = tri[..., 0] * iw
+    sy = tri[..., 1] * iw
+    valid = torch.all(w > 1e-9, dim=-1)
+    area = ((sx[..., 1] - sx[..., 0]) * (sy[..., 2] - sy[..., 0])
+            - (sy[..., 1] - sy[..., 0]) * (sx[..., 2] - sx[..., 0]))
+    valid &= area > 0.0 if cull else torch.abs(area) >= 1e-12
+    exp = 1.0 + margin
+    xmin = (sx.amin(-1) + 1.0) * (width / 2.0) - 0.5 - exp
+    xmax = (sx.amax(-1) + 1.0) * (width / 2.0) - 0.5 + exp
+    ymin = (sy.amin(-1) + 1.0) * (height / 2.0) - 0.5 - exp
+    ymax = (sy.amax(-1) + 1.0) * (height / 2.0) - 0.5 + exp
+    valid &= (xmax >= 0) & (ymax >= 0) & (xmin <= width - 1) \
+        & (ymin <= height - 1)
+
+    def tile_of(a, tile, n):
+        # ⌊a⌋ // tile, clipped to the image's tiles; ⌊a⌋ clamped to
+        # [−1, n·tile] first, which keeps the result and any float in range
+        a = torch.floor(a).clamp(-1.0, float(n * tile)).to(torch.int64)
+        return torch.div(a, tile, rounding_mode="floor").clamp(0, n - 1)
+
+    jlo, jhi = tile_of(xmin, TILE_W, tx_n), tile_of(xmax, TILE_W, tx_n)
+    ilo, ihi = tile_of(ymin, TILE_H, ty_n), tile_of(ymax, TILE_H, ty_n)
+    # ⌊ymin⌋ toward zero, as a float → int32 conversion rounds
+    yq = ymin.clamp(0.0, 4095.0).to(torch.int64)
+
+    keys = []
+    for dy in range(span_y):
+        for dx in range(span_x):
+            ti = ilo + dy
+            tj = jlo + dx
+            live = valid & (ti <= ihi) & (tj <= jhi)
+            keys.append(torch.where(live, (ti * tx_n + tj) * 4096 + yq,
+                                    T * 4096))            # dead: past every tile
+    key = torch.cat(keys, dim=1)                          # (C, K·F)
+    key_s, order = torch.sort(key, dim=1, stable=True)
+    tile_s = key_s // 4096                                # T for dead
+    starts = torch.searchsorted(
+        key_s, (torch.arange(T + 1, device=dev) * 4096).expand(C, T + 1)
+        .contiguous())
+    counts = starts[:, 1:] - starts[:, :-1]
+    # bins by gather: slot (t, p) holds the face at sorted position
+    # starts[t] + p
+    p = torch.arange(cap, device=dev)
+    live = p < torch.clamp(counts, max=cap)[..., None]
+    src = torch.clamp(starts[:, :T, None] + p, max=K * F - 1)
+    fid_s = torch.gather(order, 1, src.reshape(C, -1)).reshape(C, T, cap) % F
+    bins = torch.where(live, fid_s, -1)
+    # face→slot inverse: entry e (span cell e // F, face e % F) sits at
+    # sorted position j with order[j] = e; its flat slot is
+    # tile·cap + (j − starts[tile])
+    pos = torch.arange(K * F, device=dev) \
+        - torch.gather(starts, 1, torch.clamp(tile_s, max=T))
+    keep = (tile_s < T) & (pos < cap)
+    lin_sorted = torch.where(keep, tile_s * cap + pos, T * cap)
+    lin = torch.empty_like(lin_sorted).scatter_(1, order, lin_sorted)
+    fslots = torch.cat([lin.reshape(C, K, F).transpose(1, 2),
+                        torch.full((C, 1, K), T * cap, dtype=lin.dtype,
+                                   device=dev)], dim=1)
+    return (bins, torch.clamp(counts, max=cap).to(torch.int32), fslots,
+            counts.max())
+
+
 def chain_planes(dslot, dslot_aa, boost, rbb):
     """Per-slot screen-space sums → a corner-major (..., cap, 18) table
     [per corner: dx dy dw dA0 dA1 dA2] in clip space (dz is identically
@@ -252,7 +497,6 @@ def scatter_via_faces(table18, bins, incidence, n_faces, n_verts):
     (C, TY, TX, cap); incidence from :func:`build_incidence` as tensors on
     the table's device.  Returns (dv_clip (C, V, 4), d_attrs (V, 3)).
     """
-    idx, mask = incidence
     C = table18.shape[0]
     F = n_faces
     dev = table18.device
@@ -260,7 +504,34 @@ def scatter_via_faces(table18, bins, incidence, n_faces, n_verts):
     ids = ids + (torch.arange(C, device=dev) * (F + 1))[:, None]
     dface = torch.zeros((C * (F + 1), 18), dtype=table18.dtype, device=dev)
     dface.index_add_(0, ids.reshape(-1), table18.reshape(-1, 18))
-    per_corner = dface.reshape(C, (F + 1) * 3, 6)
+    return _faces_to_vertices(dface.reshape(C, F + 1, 18), incidence)
+
+
+def scatter_via_slots(table18, fslots, incidence, n_verts):
+    """Slot gradients → vertex gradients through the face→slot inverse of
+    the bins: each face gathers and sums its K slots' rows.
+
+    table18 (C, TY, TX, cap, 18); fslots (C, F+1, K) flat slot indices with
+    sentinel T·cap (a zero row).  Returns (dv_clip (C, V, 4), d_attrs
+    (V, 3)).
+    """
+    C = table18.shape[0]
+    table = table18.reshape(C, -1, 18)
+    table = torch.cat([table, table.new_zeros(C, 1, 18)], dim=1)
+    Fp1, K = fslots.shape[1:]
+    cam = torch.arange(C, device=table.device)[:, None]
+    gathered = table[cam, fslots.reshape(C, -1)]            # (C, (F+1)·K, 18)
+    return _faces_to_vertices(gathered.reshape(C, Fp1, K, 18).sum(dim=2),
+                              incidence)
+
+
+def _faces_to_vertices(dface, incidence):
+    """Per-(camera, face) rows [per corner: dx dy dw dA0 dA1 dA2] (C, F+1,
+    18) → (dv_clip (C, V, 4) with dz = 0, d_attrs (V, 3)) through the static
+    vertex incidence; row F is the padding sentinel."""
+    idx, mask = incidence
+    C = dface.shape[0]
+    per_corner = dface.reshape(C, -1, 6)
     gathered = per_corner[:, idx.reshape(-1)].reshape(C, *idx.shape, 6)
     dv = (gathered * mask[None, :, :, None]).sum(dim=2)   # (C, V, 6)
     dv_clip = torch.cat([dv[..., 0:2], torch.zeros_like(dv[..., :1]),
@@ -289,7 +560,7 @@ def check_bin_overflow(v_clip, faces, resolution) -> int:
 
 
 class RenderPipeline:
-    """The fused render op of one topology epoch.
+    """The fused render op of one topology epoch, over all cameras at once.
 
     ``pipe(v_clip (C, V, 4), attrs (V, 3), bg) → (C, H, W, 4)`` shaded
     images (``(C, H, W, 3)`` with ``shading=False``; pass ``bg=None``).
@@ -297,16 +568,26 @@ class RenderPipeline:
     ``boost`` multiplying exactly the antialias position gradients.  One
     ``torch.autograd.Function`` wraps the chain, so bins, records and the
     slot map are built once and shared by the forward and backward kernels.
+
+    With ``prebinned`` the op takes precomputed bins and skips the traced
+    binning: ``pipe(v_clip, attrs, bg, bins (C, T, cap), counts (C, T))``,
+    and with ``slots_k=K`` also ``fslots (C, F+1, K)``, through which the
+    backward gathers each face's slot sums (:func:`scatter_via_slots`).
+    The bins take no gradient.
     """
 
     def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
-                 cap=768):
+                 cap=768, prebinned=False, slots_k=None):
+        if slots_k is not None and not prebinned:
+            raise ValueError("slots_k needs prebinned bins")
         self.faces = np.ascontiguousarray(np.asarray(faces), dtype=np.int64)
         self.opp = np.ascontiguousarray(np.asarray(opp), dtype=np.int64)
         self.resolution = tuple(resolution)
         self.shading = bool(shading)
         self.boost = float(boost)
         self.cap = int(cap)
+        self.prebinned = bool(prebinned)
+        self.slots_k = None if slots_k is None else int(slots_k)
         self._dev = {}
 
     def device_tables(self, device, n_verts):
@@ -322,56 +603,206 @@ class RenderPipeline:
                                as_t(mask, torch.float32)))
         return self._dev[key]
 
-    def __call__(self, v_clip, attrs, bg=None):
-        return _PipelineFn.apply(self, v_clip, attrs, bg)
+    def check_bins(self, n_cams, binned):
+        """The bins' shapes against this pipe's: (bins, counts[, fslots])."""
+        want = 0 if not self.prebinned else 2 + (self.slots_k is not None)
+        if len(binned) != want:
+            raise ValueError(f"the pipe takes {want} bin tensors, got "
+                             f"{len(binned)}")
+        if not want:
+            return
+        h, w = self.resolution
+        T = (h // TILE_H) * (w // TILE_W)
+        shapes = [(n_cams, T, self.cap), (n_cams, T)]
+        if self.slots_k is not None:
+            shapes.append((n_cams, len(self.faces) + 1, self.slots_k))
+        got = [tuple(b.shape) for b in binned]
+        if got != shapes:
+            raise ValueError(f"bins of shapes {got}; the pipe takes {shapes}")
+
+    def __call__(self, v_clip, attrs, bg=None, *binned):
+        self.check_bins(v_clip.shape[0], binned)
+        return _PipelineFn.apply(self, v_clip, attrs, bg, *binned)
+
+
+def _forward_kernels(pipe, rfb, rbb, counts, bg):
+    """raster_fwd, composite and aa_fwd: (out, slot, fid, z, comp, cov)."""
+    u, v, z, fid, slot, c0, c1, c2 = kernels.raster_fwd(rfb, counts,
+                                                        pipe.resolution)
+    color = torch.stack([c0, c1, c2], dim=-1)
+    cov = (fid > 0.0)[..., None]
+    if pipe.shading:
+        col4 = torch.cat([color, cov.to(color.dtype)], dim=-1)
+        comp = torch.where(cov, col4, bg).contiguous()
+    else:
+        comp = color
+    out = kernels.aa_fwd(rbb, counts, fid, z, comp, pipe.resolution)
+    return out, slot, fid, z, comp, cov
+
+
+def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g):
+    """aa_bwd, raster_bwd and the chain to clip space: (table18 (C, TY,
+    TX, cap, 18), d_comp (C, H, W, D))."""
+    res = pipe.resolution
+    d_comp, dslot_aa = kernels.aa_bwd(rbb, counts, fid, z, comp,
+                                      g.contiguous(), res)
+    d_color = torch.where(cov, d_comp[..., :3], 0.0) if pipe.shading \
+        else d_comp
+    zeros = torch.zeros_like(fid)
+    dslot = kernels.raster_bwd(rbb, counts, slot, d_color.contiguous(),
+                               zeros, zeros, res)
+    return chain_planes(dslot, dslot_aa, pipe.boost, rbb), d_comp
+
+
+def _tiled(pipe, n_cams, *tensors):
+    """(C, T, cap, ...) tensors → (C, TY, TX, cap, ...)."""
+    h, w = pipe.resolution
+    ty, tx = h // TILE_H, w // TILE_W
+    return [t.reshape(n_cams, ty, tx, *t.shape[2:]) for t in tensors]
+
+
+def _counts3(pipe, counts):
+    """counts (C, T) → contiguous int32 (C, TY, TX), as the kernels take."""
+    h, w = pipe.resolution
+    return counts.reshape(counts.shape[0], h // TILE_H, w // TILE_W) \
+        .to(torch.int32).contiguous()
+
+
+def _d_bg(d_comp, cov, bg_shape):
+    """comp = where(cov, col4, bg): d_bg is d_comp off the surface, summed
+    over the dimensions bg was broadcast along."""
+    d_bg = torch.where(cov, 0.0, d_comp)
+    extra = d_bg.ndim - len(bg_shape)
+    return d_bg.sum(dim=tuple(range(extra))) if extra else d_bg
 
 
 class _PipelineFn(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, pipe, v_clip, attrs, bg):
-        height, width = res = pipe.resolution
+    def forward(ctx, pipe, v_clip, attrs, bg, *binned):
+        height, width = pipe.resolution
+        C = v_clip.shape[0]
         faces, opp, _ = pipe.device_tables(v_clip.device, v_clip.shape[1])
-        rfb, rbb, bins, counts = setup_and_bin(v_clip, faces, attrs, opp,
-                                               height, width, pipe.cap)
-        u, v, z, fid, slot, c0, c1, c2 = kernels.raster_fwd(rfb, counts, res)
-        color = torch.stack([c0, c1, c2], dim=-1)
-        cov = (fid > 0.0)[..., None]
-        if pipe.shading:
-            col4 = torch.cat([color, cov.to(color.dtype)], dim=-1)
-            comp = torch.where(cov, col4, bg)
+        if pipe.prebinned:
+            rfb, rbb = setup_from_bins(v_clip, faces, attrs, opp, binned[0],
+                                       height, width)
+            rfb, rbb, bins = _tiled(pipe, C, rfb, rbb, binned[0])
+            counts = _counts3(pipe, binned[1])
         else:
-            comp = color
-        out = kernels.aa_fwd(rbb, counts, fid, z, comp.contiguous(), res)
+            rfb, rbb, bins, counts = setup_and_bin(v_clip, faces, attrs, opp,
+                                                   height, width, pipe.cap)
+        out, slot, fid, z, comp, cov = _forward_kernels(pipe, rfb, rbb,
+                                                        counts, bg)
         ctx.pipe = pipe
         ctx.n_verts = v_clip.shape[1]
+        ctx.n_binned = len(binned)
         ctx.bg_shape = None if bg is None else bg.shape
-        ctx.save_for_backward(rbb, bins, counts, slot, fid, z, comp, cov)
+        fslots = binned[2:3]
+        ctx.save_for_backward(rbb, bins, counts, slot, fid, z, comp, cov,
+                              *fslots)
         return out
 
     @staticmethod
     def backward(ctx, g):
         pipe = ctx.pipe
-        res = pipe.resolution
-        rbb, bins, counts, slot, fid, z, comp, cov = ctx.saved_tensors
-        d_comp, dslot_aa = kernels.aa_bwd(rbb, counts, fid, z, comp,
-                                          g.contiguous(), res)
-        if pipe.shading:
-            d_color = torch.where(cov, d_comp[..., :3], 0.0)
-        else:
-            d_color = d_comp
-        zeros = torch.zeros_like(fid)
-        dslot = kernels.raster_bwd(rbb, counts, slot, d_color.contiguous(),
-                                   zeros, zeros, res)
-        table18 = chain_planes(dslot, dslot_aa, pipe.boost, rbb)
+        rbb, bins, counts, slot, fid, z, comp, cov, *fslots = \
+            ctx.saved_tensors
+        table18, d_comp = _backward_kernels(pipe, rbb, counts, slot, fid, z,
+                                            comp, cov, g)
         _, _, incidence = pipe.device_tables(rbb.device, ctx.n_verts)
-        dv_clip, d_attrs = scatter_via_faces(table18, bins, incidence,
-                                             pipe.faces.shape[0], ctx.n_verts)
+        if fslots:
+            dv_clip, d_attrs = scatter_via_slots(table18, fslots[0],
+                                                 incidence, ctx.n_verts)
+        else:
+            dv_clip, d_attrs = scatter_via_faces(table18, bins, incidence,
+                                                 pipe.faces.shape[0],
+                                                 ctx.n_verts)
         d_bg = None
         if ctx.bg_shape is not None and ctx.needs_input_grad[3]:
-            # comp = where(cov, col4, bg): d_bg is d_comp off the surface
-            d_bg = torch.where(cov, 0.0, d_comp)
-            extra = d_bg.ndim - len(ctx.bg_shape)
-            if extra:
-                d_bg = d_bg.sum(dim=tuple(range(extra)))
-        return None, dv_clip, d_attrs, d_bg
+            d_bg = _d_bg(d_comp, cov, ctx.bg_shape)
+        return (None, dv_clip, d_attrs, d_bg) + (None,) * ctx.n_binned
+
+
+class RenderPipelineBig(RenderPipeline):
+    """The camera-sequential prebinned render op
+    (``pallas_core.make_render_pipeline_big``): the contract of
+    ``RenderPipeline(..., prebinned=True)``, run one camera at a time
+    through the four kernels (C = 1), so the binned tables of one camera are
+    alive at a time.  The backward rebuilds each camera's backward records
+    from the bins (``setup_from_bins(..., need_fwd=False)``) rather than
+    keeping them, and chains and scatters per camera."""
+
+    def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
+                 cap=8192, slots_k=None):
+        super().__init__(faces, opp, resolution, shading=shading,
+                         boost=boost, cap=cap, prebinned=True,
+                         slots_k=slots_k)
+
+    def __call__(self, v_clip, attrs, bg=None, *binned):
+        self.check_bins(v_clip.shape[0], binned)
+        return _BigFn.apply(self, v_clip, attrs, bg, *binned)
+
+
+def _per_camera_bg(bg, i, n_cams):
+    return bg[i:i + 1] if bg.ndim == 4 and bg.shape[0] == n_cams else bg
+
+
+class _BigFn(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, pipe, v_clip, attrs, bg, *binned):
+        height, width = pipe.resolution
+        C = v_clip.shape[0]
+        faces, opp, _ = pipe.device_tables(v_clip.device, v_clip.shape[1])
+        bins, counts = binned[:2]
+        per_cam = []
+        for i in range(C):
+            rfb, rbb = setup_from_bins(v_clip[i:i + 1], faces, attrs, opp,
+                                       bins[i:i + 1], height, width)
+            rfb, rbb = _tiled(pipe, 1, rfb, rbb)
+            bg_i = None if bg is None else _per_camera_bg(bg, i, C)
+            per_cam.append(_forward_kernels(pipe, rfb, rbb,
+                                            _counts3(pipe, counts[i:i + 1]),
+                                            bg_i))
+        out, slot, fid, z, comp, cov = (torch.cat([p[k] for p in per_cam])
+                                        for k in range(6))
+        ctx.pipe = pipe
+        ctx.n_binned = len(binned)
+        ctx.bg_shape = None if bg is None else bg.shape
+        ctx.save_for_backward(v_clip, attrs, slot, fid, z, comp, cov,
+                              *binned)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        pipe = ctx.pipe
+        height, width = pipe.resolution
+        v_clip, attrs, slot, fid, z, comp, cov, bins, counts, *fslots = \
+            ctx.saved_tensors
+        C, V = v_clip.shape[:2]
+        faces, opp, incidence = pipe.device_tables(v_clip.device, V)
+        dv_clip = torch.empty_like(v_clip)
+        d_attrs = torch.zeros_like(attrs)
+        d_comp = torch.empty_like(comp)
+        for i in range(C):
+            one = slice(i, i + 1)
+            _, rbb = setup_from_bins(v_clip[one], faces, attrs, opp,
+                                     bins[one], height, width,
+                                     need_fwd=False)
+            rbb, = _tiled(pipe, 1, rbb)
+            table18, d_comp[one] = _backward_kernels(
+                pipe, rbb, _counts3(pipe, counts[one]), slot[one], fid[one],
+                z[one], comp[one], cov[one], g[one])
+            if fslots:
+                dv1, da1 = scatter_via_slots(table18, fslots[0][one],
+                                             incidence, V)
+            else:
+                bins4, = _tiled(pipe, 1, bins[one])
+                dv1, da1 = scatter_via_faces(table18, bins4, incidence,
+                                             pipe.faces.shape[0], V)
+            dv_clip[i] = dv1[0]
+            d_attrs += da1
+        d_bg = None
+        if ctx.bg_shape is not None and ctx.needs_input_grad[3]:
+            d_bg = _d_bg(d_comp, cov, ctx.bg_shape)
+        return (None, dv_clip, d_attrs, d_bg) + (None,) * ctx.n_binned

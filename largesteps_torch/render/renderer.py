@@ -1,15 +1,16 @@
 """Differentiable multi-view renderer.
 
-Port of ``largesteps_tpu/render/renderer.py`` on the fused CUDA pipeline
+Port of ``largesteps_tpu/render/renderer.py`` on the fused CUDA pipelines
 (:mod:`largesteps_torch.render.pipeline`): project all cameras → rasterize
 → interpolate SH vertex lighting (or constant white for silhouettes) →
 composite over the environment backgrounds → antialias, with ``boost`` on
-the antialias position gradients.  The pure-PyTorch ``backend="xla"``
-counterpart, host-computed ``bins=`` and device meshes are later slices
-(ROADMAP.md Queue 1).
+the antialias position gradients.  ``render(..., bins=)`` takes the
+large-F path's precomputed bins.  The pure-PyTorch ``backend="xla"``
+counterpart and device meshes are later slices (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
+import os
 import warnings
 
 import numpy as np
@@ -18,11 +19,18 @@ import torch
 from .._device import resolve_device
 from .antialias import face_adjacency
 from .camera import persp_proj, build_mvps, project
-from .pipeline import RenderPipeline, check_bin_overflow, suggest_cap
+from .pipeline import (RenderPipeline, RenderPipelineBig, check_bin_overflow,
+                       suggest_cap, TILE_H, TILE_W)
 from .sh import sh_matrices, sh_eval
 from .texture import texture_bilinear
 
-__all__ = ["Topology", "Renderer", "render_backgrounds"]
+__all__ = ["Topology", "Renderer", "render_backgrounds", "batched_bytes",
+           "BATCHED_SHARE"]
+
+# the share of the device's memory that the batched prebinned pipe's
+# working set (batched_bytes) may take; past it the camera-sequential pipe
+# renders one camera at a time
+BATCHED_SHARE = 0.25
 
 
 class Topology:
@@ -31,7 +39,29 @@ class Topology:
     def __init__(self, faces):
         self.faces = np.ascontiguousarray(np.asarray(faces), dtype=np.int32)
         self.opp = face_adjacency(self.faces)
-        self._pipe_cache = {}     # (res, shading, boost, cap) -> pipeline
+        # (res, shading, boost, cap, prebinned, slots_k, camera-sequential)
+        # -> pipeline
+        self._pipe_cache = {}
+
+    @property
+    def n_faces(self) -> int:
+        return int(self.faces.shape[0])
+
+
+def batched_bytes(n_cams, tiles, cap, n_faces) -> int:
+    """Bytes the batched prebinned pipe keeps at once: per (camera, tile,
+    slot) the forward and backward records, raster_bwd's sums (32 floats
+    each), the antialias sums (8) and the chained table (18); per (camera,
+    face) the setup records, twice."""
+    return 4 * (n_cams * tiles * cap * (32 + 32 + 32 + 8 + 18)
+                + 2 * n_cams * n_faces * 32)
+
+
+def _device_bytes(device) -> int:
+    """Memory of the device the tensors live on."""
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
 
 
 def render_backgrounds(envmap, view_mats, fov_x, res) -> torch.Tensor:
@@ -129,21 +159,49 @@ class Renderer:
                           f"bin_cap={fit})")
         return occ
 
+    def camera_sequential(self, cap: int, n_faces: int) -> bool:
+        """Whether prebinned bins of ``cap`` take the camera-sequential
+        pipe: when the batched pipe's working set would pass a quarter
+        (``BATCHED_SHARE``) of the device's memory.  The working set, in
+        float32 values, is C·T·cap·(32 + 32 + 32 + 8 + 18) + 2·C·F·32
+        (:func:`batched_bytes`) for C views of T tiles and F faces."""
+        h, w = self.res
+        need = batched_bytes(self.mvps.shape[0], (h // TILE_H) * (w // TILE_W),
+                             cap, n_faces)
+        return need > BATCHED_SHARE * _device_bytes(self.device)
+
     def render(self, v, n, topology: Topology, bins=None):
         """Render every view: v (V, 3), n (V, 3) → (C, H, W, 4|3),
-        differentiable with respect to v and n."""
-        if bins is not None:
-            raise NotImplementedError(
-                "host-computed bins belong to the large-F slice "
-                "(ROADMAP.md Queue 1, item 8)")
-        key = (self.res, self.shading, self.boost, self.bin_cap)
+        differentiable with respect to v and n.
+
+        ``bins``: precomputed ``(bins (C, T, cap), counts (C, T)[, fslots
+        (C, F+1, K)])`` device tensors (the large-F path; no gradient), in
+        place of the traced per-step binning; the pipe is chosen by
+        :meth:`camera_sequential`."""
+        prebinned = bins is not None
+        fslots = None
+        if prebinned:
+            cap = int(bins[0].shape[-1])
+            if len(bins) > 2 and bins[2] is not None:
+                fslots = bins[2]
+            big = self.camera_sequential(cap, topology.n_faces)
+        else:
+            cap, big = self.bin_cap, False
+        slots_k = None if fslots is None else int(fslots.shape[-1])
+        key = (self.res, self.shading, self.boost, cap, prebinned, slots_k,
+               big)
         pipe = topology._pipe_cache.get(key)
         if pipe is None:
-            pipe = RenderPipeline(topology.faces, topology.opp, self.res,
-                                  shading=self.shading, boost=self.boost,
-                                  cap=self.bin_cap)
+            kind = RenderPipelineBig if big else RenderPipeline
+            kw = {} if big else {"prebinned": prebinned}
+            pipe = kind(topology.faces, topology.opp, self.res,
+                        shading=self.shading, boost=self.boost, cap=cap,
+                        slots_k=slots_k, **kw)
             topology._pipe_cache[key] = pipe
+        extra = ()
+        if prebinned:
+            extra = (bins[0], bins[1]) + (() if fslots is None else (fslots,))
         v_ndc = project(v, self.mvps)
         if self.shading:
-            return pipe(v_ndc, sh_eval(self.sh_M, n) / np.pi, self.bgs)
-        return pipe(v_ndc, torch.ones_like(v), None)
+            return pipe(v_ndc, sh_eval(self.sh_M, n) / np.pi, self.bgs, *extra)
+        return pipe(v_ndc, torch.ones_like(v), None, *extra)

@@ -1,6 +1,8 @@
 """The two properties of the per-tile bins that the antialias kernels rely
-on, at 2 views of 256×256 (two tiles each way) with icosphere-3, the bins of
-``setup_and_bin`` and the ids and depths of ``raster_fwd_plain``.
+on, at 2 views of 256×256 (two tiles each way) with icosphere-3, and the ids
+and depths of ``raster_fwd_plain`` on those bins.  The bins are those of
+``setup_and_bin`` (traced), of ``bin_triangles_host`` and of
+``bin_triangles_device``, each of the last two at margins 0 and 4 px.
 
 * Every pixel pair whose face ids differ has its owner (the nearer face) in
   the bin of the anchor's tile and in the bin of the neighbour's tile.  So
@@ -17,15 +19,23 @@ from largesteps_torch.io.synth import make_scene
 from largesteps_torch.render import kernels as K
 from largesteps_torch.render.antialias import face_adjacency
 from largesteps_torch.render.camera import project
-from largesteps_torch.render.pipeline import (check_bin_overflow,
-                                              setup_and_bin, suggest_cap)
+from largesteps_torch.render.pipeline import (bin_triangles_device,
+                                              bin_triangles_host,
+                                              check_bin_overflow,
+                                              setup_and_bin, setup_from_bins,
+                                              suggest_cap)
 from largesteps_torch.render.renderer import Renderer
 
 RES = (256, 256)
+TY, TX = RES[0] // K.TILE_H, RES[1] // K.TILE_W
 
 
-@pytest.fixture(scope="module")
-def binned():
+@pytest.fixture(scope="module", params=[
+    ("traced", 0.0), ("host", 0.0), ("host", 4.0), ("device", 0.0),
+    ("device", 4.0)], ids=["traced", "host", "host_m4", "device",
+                           "device_m4"])
+def binned(request):
+    kind, margin = request.param
     scene = make_scene(source=("icosphere", 3), target=("gourd", 2),
                        n_views=2, res=RES[0])
     f = scene["mesh-source"]["faces"]
@@ -33,10 +43,27 @@ def binned():
     opp = torch.as_tensor(face_adjacency(f).astype(np.int64))
     v_ndc = project(torch.as_tensor(scene["mesh-source"]["vertices"]),
                     Renderer(scene, device="cpu").mvps)
-    cap = suggest_cap(check_bin_overflow(v_ndc, faces, RES))
     attrs = torch.zeros((v_ndc.shape[1], 3))
-    rfb, rbb, bins, counts = setup_and_bin(v_ndc, faces, attrs, opp, *RES,
-                                           cap)
+    if kind == "traced":
+        cap = suggest_cap(check_bin_overflow(v_ndc, faces, RES))
+        rfb, rbb, bins, counts = setup_and_bin(v_ndc, faces, attrs, opp,
+                                               *RES, cap)
+    else:
+        b, c, occ, spans = bin_triangles_host(v_ndc.numpy(), f, RES,
+                                              margin=margin,
+                                              return_spans=True)
+        cap = b.shape[-1]
+        if kind == "device":
+            assert spans[0] <= 2 and spans[1] <= 2   # its static bound
+            b, c, _, d_occ = bin_triangles_device(v_ndc, faces, RES, cap,
+                                                  margin=margin)
+            assert int(d_occ) == occ
+        bins = torch.as_tensor(b).long()
+        rfb, _ = setup_from_bins(v_ndc, faces, attrs, opp, bins, *RES)
+        C = bins.shape[0]
+        rfb = rfb.reshape(C, TY, TX, cap, 32)
+        bins = bins.reshape(C, TY, TX, cap)
+        counts = torch.as_tensor(c).reshape(C, TY, TX).to(torch.int32)
     fwd = K.raster_fwd_plain(rfb, counts, RES)
     return {"bins": bins, "counts": counts, "fid": fwd[3], "z": fwd[2],
             "cap": cap}

@@ -131,10 +131,14 @@ def test_unported_solvers_raise(mesh, method):
 
 
 def test_dense_limit_raises(mesh):
+    """Past ``dense_limit`` the banded tier runs; a bandwidth it refuses
+    (here: past a lowered ``max_block``) raises, naming the block-AMG
+    item, rather than falling back."""
     v, f = mesh
+    M = compute_matrix(v, f, lambda_=19.0, device="cpu")
+    assert CholeskySolver(M, dense_limit=4).tier == "banded"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CholeskySolver(compute_matrix(v, f, lambda_=19.0, device="cpu"),
-                       dense_limit=4)
+        CholeskySolver(M, dense_limit=4, max_block=64)
 
 
 def test_adam_uniform_three_steps():

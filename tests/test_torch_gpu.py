@@ -28,10 +28,21 @@ cotangents from a numpy seed.
   the corner cull), at the fitted cap and at cap 9216; the overflowing
   bins; every bin holding each face twice, at both caps.
 
+* ``test_gpu_kernels_past_2_31``: all four kernels on 13 views of 256² at
+  cap 327,680 (one bin could hold every face of nefertiti), so the records
+  of the last tile start past element 2³¹; the live slots are those of the
+  fitted cap, and the outputs must equal the plain versions' there.
+* The large-F path: device bins on the card equal the CPU's; a banded
+  solve on the card against a float64 CPU solve; the batched and the
+  camera-sequential prebinned pipes on the card against the same pipes on
+  the CPU.
+
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
 plain version's operations in order); per-slot sums 1e-5 × max|sum| (atomics
-add in another order than ``index_add_``).
+add in another order than ``index_add_``); bins exact; the banded solve 1e-5
+relative; pipe images 1e-5 absolute and gradients 1e-4 × max|g| (the
+projection and the glue run as PyTorch's CUDA kernels).
 """
 import numpy as np
 import pytest
@@ -41,7 +52,11 @@ from largesteps_torch.io.synth import make_scene
 from largesteps_torch.render import kernels as K
 from largesteps_torch.render.antialias import face_adjacency
 from largesteps_torch.render.camera import project
-from largesteps_torch.render.pipeline import (check_bin_overflow,
+from largesteps_torch.render.pipeline import (RenderPipeline,
+                                              RenderPipelineBig,
+                                              bin_triangles_device,
+                                              bin_triangles_host,
+                                              check_bin_overflow,
                                               setup_and_bin, suggest_cap)
 from largesteps_torch.render.renderer import Renderer
 
@@ -314,3 +329,183 @@ def test_colliding_ids_share_a_home():
     assert np.unique(ids).size == ids.size and np.all(ids == np.round(ids))
     for bits in range(5, HASH_BITS + 1):
         assert np.all(_aa_home(ids, bits) == 0)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_gpu_kernels_past_2_31():
+    """Each record, slot and sum offset is 64-bit: at cap 327,680 the last
+    of 208 tiles starts at element 207 × 327,680 × 32 > 2³¹ of the records
+    and of raster_bwd's output."""
+    dev = _card()
+    c = _build_views(13, 256)
+    cap = c["cap"]
+    big_cap = 327_680
+    assert 207 * big_cap * 32 > 2 ** 31
+    C, TY, TX = c["counts"].shape
+    assert C * TY * TX == 208
+    big = {}
+    for k in ("rfb", "rbb"):
+        t = torch.zeros((C, TY, TX, big_cap, 32), device=dev)
+        t[..., :cap, :] = c[k]
+        big[k] = t
+    fid, z, slot = c["fwd"][3], c["fwd"][2], c["fwd"][4]
+    res, counts = c["res"], c["counts"]
+    got = K.raster_fwd(big["rfb"], counts, res)
+    for a, b in zip(got, c["fwd"]):
+        assert _max_abs(a, b) < 1e-6
+    assert torch.equal(got[3], fid) and torch.equal(got[4], slot)
+    del got, big["rfb"]
+    col = c["col4"]
+    assert _max_abs(K.aa_fwd(big["rbb"], counts, fid, z, col, res),
+                    K.aa_fwd_plain(c["rbb"], counts, fid, z, col, res)) < 1e-6
+    args = (slot, c["d_col"], c["d_u"], c["d_v"], res)
+    sums = K.raster_bwd(big["rbb"], counts, *args)
+    want = K.raster_bwd_plain(c["rbb"], counts, *args)
+    assert _max_abs(sums[..., :cap, :], want) < 1e-5 * float(
+        want.abs().max())
+    assert not bool(sums[..., cap:, :].any())
+    del sums
+    dc, ds = K.aa_bwd(big["rbb"], counts, fid, z, col, c["d_out"], res)
+    dcw, dsw = K.aa_bwd_plain(c["rbb"], counts, fid, z, col, c["d_out"], res)
+    assert _max_abs(dc, dcw) < 1e-6
+    assert _max_abs(ds[..., :cap, :], dsw) < 1e-5 * float(dsw.abs().max())
+    assert not bool(ds[..., cap:, :].any())
+
+
+def _build_views(n_views, res, level=4):
+    """``_build`` at ``n_views`` views: bins of the fitted cap, the forward
+    planes and seeded colours and cotangents, on the card."""
+    dev = _card()
+    scene = make_scene(source=("icosphere", level), target=("gourd", 2),
+                       n_views=n_views, res=res)
+    f = scene["mesh-source"]["faces"]
+    faces = torch.as_tensor(f.astype(np.int64), device=dev)
+    opp = torch.as_tensor(face_adjacency(f).astype(np.int64), device=dev)
+    v_ndc = project(torch.as_tensor(scene["mesh-source"]["vertices"],
+                                    device=dev), Renderer(scene, device=dev).mvps)
+    cap = suggest_cap(check_bin_overflow(v_ndc, faces, (res, res)))
+    rng = np.random.default_rng(0)
+    as_t = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    attrs = as_t(rng.normal(size=(v_ndc.shape[1], 3)))
+    rfb, rbb, _, counts = setup_and_bin(v_ndc, faces, attrs, opp, res, res,
+                                        cap)
+    fwd = [p.contiguous() for p in K.raster_fwd_plain(rfb, counts,
+                                                      (res, res))]
+    cov = (fwd[3] > 0)[..., None]
+    col4 = torch.where(cov, torch.cat([torch.stack(fwd[5:8], -1),
+                                       cov.float()], -1),
+                       as_t(rng.uniform(size=(n_views, res, res, 4))))
+    shape = (n_views, res, res)
+    return {"res": (res, res), "cap": cap, "rfb": rfb, "rbb": rbb,
+            "counts": counts, "fwd": fwd, "col4": col4.contiguous(),
+            "d_out": as_t(rng.normal(size=(*shape, 4))),
+            "d_col": as_t(rng.normal(size=(*shape, 3))),
+            "d_u": as_t(rng.normal(size=shape)),
+            "d_v": as_t(rng.normal(size=shape))}
+
+
+def _large_f_case(n_views=13, level=5, res=256):
+    scene = make_scene(source=("icosphere", level), target=("gourd", 2),
+                       n_views=n_views, res=res)
+    f = scene["mesh-source"]["faces"]
+    r = Renderer(scene, device="cpu")
+    v_ndc = project(torch.as_tensor(scene["mesh-source"]["vertices"]),
+                    r.mvps)
+    _, _, occ = bin_triangles_host(v_ndc.numpy(), f, (res, res), margin=4.0)
+    return scene, f, v_ndc, suggest_cap(occ)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cull", [False, True])
+def test_gpu_device_bins_match_cpu(cull):
+    dev = _card()
+    _, f, v_ndc, cap = _large_f_case()
+    faces = torch.as_tensor(f.astype(np.int64))
+    want = bin_triangles_device(v_ndc, faces, (256, 256), cap, margin=4.0,
+                                cull=cull)
+    got = bin_triangles_device(v_ndc.to(dev), faces.to(dev), (256, 256),
+                               cap, margin=4.0, cull=cull)
+    assert int(want[1].max()) > 100
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_gpu_banded_solve():
+    """icosphere-5 (10,242 verts) through the banded tier on the card
+    against scipy's float64 solve."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    from largesteps_torch.core.geometry import compute_matrix
+    from largesteps_torch.core.solvers import CholeskySolver
+    from largesteps_torch.ops.shapes import icosphere
+    dev = _card()
+    v, f = icosphere(5)
+    M = compute_matrix(v.astype(np.float32), f, lambda_=19.0, device=dev)
+    slv = CholeskySolver(M, dense_limit=100)
+    assert slv.tier == "banded"
+    b = np.random.default_rng(0).normal(size=(len(v), 3)).astype(np.float32)
+    x = slv.solve(torch.as_tensor(b, device=dev)).cpu().numpy()
+    st = M.structure
+    A = sp.coo_matrix((M.vals.double().cpu().numpy(), (st.rows, st.cols)),
+                      shape=st.shape).tocsc()
+    x64 = spl.spsolve(A, b.astype(np.float64))
+    assert np.abs(x - x64).max() / np.abs(x64).max() < 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("big", [False, True], ids=["batched", "big"])
+def test_gpu_prebinned_pipes_match_cpu(big):
+    """icosphere-4 in 2 views of 256² through device bins with the
+    face→slot inverse: the pipe on the card against the same pipe on the
+    CPU (the kernels' plain versions)."""
+    dev = _card()
+    scene, f, v_ndc, cap = _large_f_case(n_views=2, level=4)
+    faces = torch.as_tensor(f.astype(np.int64))
+    binned = bin_triangles_device(v_ndc, faces, (256, 256), cap,
+                                  margin=4.0)[:3]
+    r = Renderer(scene, device="cpu")
+    rng = np.random.default_rng(1)
+    attrs = torch.as_tensor(rng.uniform(size=(v_ndc.shape[1], 3)).astype(
+        np.float32))
+    w = torch.as_tensor(rng.normal(size=(2, 256, 256, 4)).astype(np.float32))
+    kind = RenderPipelineBig if big else RenderPipeline
+    kw = {} if big else {"prebinned": True}
+    pipe = kind(f, face_adjacency(f), (256, 256), boost=3.0, cap=cap,
+                slots_k=int(binned[2].shape[-1]), **kw)
+    out = {}
+    for d in ("cpu", dev):
+        vc = v_ndc.to(d).clone().requires_grad_(True)
+        a = attrs.to(d).clone().requires_grad_(True)
+        img = pipe(vc, a, r.bgs.to(d), *(t.to(d) for t in binned))
+        (w.to(d) * img).sum().backward()
+        out[str(d)] = (img.detach().cpu(), vc.grad.cpu(), a.grad.cpu())
+    (ic, gc, ac), (ig, gg, ag) = out["cpu"], out[str(dev)]
+    assert float(ic.abs().max()) > 0.1
+    assert _max_abs(ig, ic) < 1e-5
+    assert _max_abs(gg, gc) < 1e-4 * float(gc.abs().max())
+    assert _max_abs(ag, ac) < 1e-4 * float(ac.abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_host_copy_of_a_step_scalar_does_not_wait():
+    """The driver reads a step's displacement through a pinned host copy
+    queued behind the step: taking the copy returns while the card is still
+    busy, and the copy holds the value once the event after it completes."""
+    from largesteps_torch.driver.optimize_shape import _mark, _to_host
+    _card()
+    t = torch.tensor(3.5, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)              # about half a second of work
+    h = _to_host(t * 2.0)
+    event = _mark(t.device)
+    assert not event.query()                # the host did not wait
+    assert h.device.type == "cpu" and h.is_pinned()
+    event.synchronize()
+    assert float(h) == 7.0

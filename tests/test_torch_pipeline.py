@@ -169,7 +169,8 @@ def test_port_checkpoint_resumes_in_port(scene, tmp_path):
 
 
 @pytest.mark.parametrize("params", [{"remesh": [2]}, {"sharding": {"dp": 2}},
-                                    {"host_bin_faces": 100},
+                                    {"host_bin_faces": 100,   # row-sharded
+                                     "sharding": {"dp": 1, "sp": 2}},
                                     {"solver": "CG"}, {"optimizer": "Adam"}])
 def test_unported_driver_options_raise(scene, params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
