@@ -13,9 +13,16 @@ views at 256²): each kernel against its plain version on the 13 views'
 host bins at the run's cap, the batched and the camera-sequential prebinned
 pipes against each other, and 20 steps of the teaser's ``ours`` leg
 (boost 3, α = 0.98, l1, AdamUniform at 2e-3; host bins, device rebins, the
-banded solver).  Prints one JSON line per phase, then the kernel table, the
-card's name and power limit, and as the last line ``{"ok": true, "device":
-{...}}``.  Exits non-zero, without the ``ok`` line, if there is no CUDA
+banded solver).  Between the two, the rasterizer micro-benchmarks' path:
+``largesteps_torch.benchmarks`` (micro_scatter at the main path's and at
+nefertiti's shape, probe_mosaic, bench_raster) with the launch counts of
+their two kernels read around it, each of the two kernels against its
+plain version (``probe_kernels``); the dense renderer against the tile
+kernels at 13 × 256² (``dense_render``); and 20 steps of the driver on the
+bench_step scene at 13 × 250², which only the dense renderer draws
+(``dense_path``).  Prints one JSON line per phase, then the kernel table,
+the card's name and power limit, and as the last line ``{"ok": true,
+"device": {...}}``.  Exits non-zero, without the ``ok`` line, if there is no CUDA
 device or any phase fails.  Imports neither jax nor largesteps_tpu.
 """
 import json
@@ -57,6 +64,13 @@ F32 = 4
 # did it (their earlier times: PERF.md)
 REDESIGNED = {"aa_fwd": "PR 2", "aa_bwd": "PR 2", "raster_fwd": "PR 3",
               "raster_bwd": "PR 3"}
+# the micro-benchmarks' kernels: float ops a valid entry (onehot_scatter:
+# one add a channel) and a covered pixel (probe_tile: 18 products, 18 adds)
+FLOPS_PROBE_PIXEL = 36
+PROBE_CAP = 256          # the JAX probe's tile (benchmarks/probe_mosaic.py)
+# nefertiti's slot table of benchmarks/micro_scatter_163k.py:28-31, one
+# camera: 16 · 52,992 slots into 327,680 faces and a sentinel, 18 columns
+NEFERTITI_SCATTER = (1, 16 * 52_992, 327_681, 18)
 
 
 def emit(obj):
@@ -627,6 +641,349 @@ def phase_large_f(card):
     return passed, launches, prof["bin_cap"]
 
 
+def micro_benchmark_path(card):
+    """The rasterizer micro-benchmarks as a user runs them (``python -m
+    largesteps_torch.benchmarks.<name>``), with the launch counts of their
+    two kernels set to 0 before and read after: micro_scatter at the main
+    path's shape and at nefertiti's, probe_mosaic at the JAX probe's tile
+    and at 208 tiles of cap 768, bench_raster at its defaults."""
+    from largesteps_torch.benchmarks import (bench_raster, micro_scatter,
+                                             probe_mosaic)
+    counters = (micro_scatter.LAUNCHES, probe_mosaic.LAUNCHES)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    C, P, F, ch = NEFERTITI_SCATTER
+    runs = {"micro_scatter": micro_scatter.main([]),
+            "micro_scatter_nefertiti": micro_scatter.main(
+                ["--cams", str(C), "--px", str(P), "--faces", str(F),
+                 "--ch", str(ch), "--reps", "5"]),
+            "probe_mosaic": probe_mosaic.main([]),
+            "probe_mosaic_208": probe_mosaic.main(
+                ["--tiles", "208", "--cap", "768", "--reps", "50"]),
+            "bench_raster": bench_raster.main(["--reps", "3"])}
+    launches = {k: n for c in counters for k, n in c.items()}
+    for name, out in runs.items():
+        emit({"phase": "micro_benchmark", "name": name, **out, "card": card})
+    return runs, launches
+
+
+def probe_cases():
+    """The two kernels' inputs, the main path's shape of each first:
+    onehot_scatter at the main path's shape and at nefertiti's, ids and
+    rows from the seed; probe_tile on the main path's real data (its 208
+    tiles at the fitted cap: the slot plane, the forward records' 32
+    columns as recT, and the colour cotangent's first channel as g0) and at
+    the JAX probe's tile (one, cap 256, seeded)."""
+    from largesteps_torch.render import kernels as K
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    cases = []
+    for tag, (C, P, F, ch) in (("main", (13, 65_536, 5_121, 32)),
+                               ("nefertiti", NEFERTITI_SCATTER)):
+        ids = torch.randint(0, F, (C, P), generator=gen, dtype=torch.int32)
+        m = torch.randn((C, P, ch), generator=gen)
+        cases.append(("onehot_scatter", tag,
+                      {"ids": ids.to(dev), "m": m.to(dev), "n_faces": F}))
+    m = main_path_inputs()
+    tiles = lambda x: K._to_tiles(x).reshape(-1, 32, 128).contiguous()
+    rfb = m["rfb"]
+    recT = rfb.reshape(-1, rfb.shape[3], 32).transpose(1, 2).contiguous()
+    cases.append(("probe_tile", f"main_path_{recT.shape[0]}x{m['cap']}", {
+        "slot": tiles(m["slot"]), "recT": recT,
+        "g0": tiles(m["d_col"][..., 0].contiguous())}))
+    del m
+    rng = np.random.default_rng(SEED)
+    up = lambda a: torch.as_tensor(a, device=dev)
+    cases.append(("probe_tile", f"seeded_1x{PROBE_CAP}", {
+        "slot": up(rng.integers(-1, PROBE_CAP, (1, 32, 128)).astype(
+            np.float32)),
+        "recT": up(rng.standard_normal((1, 32, PROBE_CAP)).astype(
+            np.float32)),
+        "g0": up(rng.standard_normal((1, 32, 128)).astype(np.float32))}))
+    return cases
+
+
+def _probe_library(name, a):
+    """The PyTorch library calls that compute the kernel's function, inputs
+    prepared outside the timed call: one ``index_add_`` (onehot_scatter);
+    ``index_select`` of the named record rows and ``index_add_`` of the
+    18 planes (probe_tile)."""
+    if name == "onehot_scatter":
+        ids = a["ids"].reshape(-1).long()
+        rows = a["m"].reshape(-1, a["m"].shape[-1])
+        F, ch = a["n_faces"], rows.shape[-1]
+        return lambda: torch.zeros((F, ch), device=rows.device).index_add_(
+            0, ids, rows)
+    slot, recT, g0 = a["slot"], a["recT"], a["g0"]
+    B, _, cap = recT.shape
+    s = slot.reshape(B, -1)
+    valid = (s >= 0) & (s < cap) & (s == torch.floor(s))
+    flat = torch.where(valid, torch.arange(B, device=s.device)[:, None] * cap
+                       + s.long(), B * cap).reshape(-1)
+    table = torch.cat([recT.transpose(1, 2).reshape(B * cap, 32),
+                       recT.new_zeros(1, 32)])
+    g = (g0.reshape(-1, 1) * torch.arange(1, 19, device=s.device,
+                                          dtype=torch.float32)).contiguous()
+    return lambda: (table.index_select(0, flat),
+                    torch.zeros((B * cap + 1, 18), device=s.device)
+                    .index_add_(0, flat, g))
+
+
+def _probe_holds(name, got, want):
+    """(passed, max-abs errors, scales, tolerance) of a micro-benchmark
+    kernel against its plain version."""
+    errs = [max_abs(a, b) for a, b in zip(got, want)]
+    scales = [float(b.abs().max()) for b in want]
+    if name == "onehot_scatter":
+        return (errs[0] <= 1e-5 * scales[0], errs, scales,
+                "1e-5 x max|plain| (atomics add in another order)")
+    return (errs[0] == 0.0 and errs[1] <= 1e-5 * scales[1], errs, scales,
+            "fields exact; S 1e-5 x max|plain|")
+
+
+def phase_probe_kernels(card):
+    """The micro-benchmarks' path with its launch counts, then each of its
+    two kernels against its plain version at the shapes of
+    :func:`probe_cases`: errors, planted errors, ms, plain ms, the library
+    calls' ms, bytes and bound.  Returns (passed, {name: row})."""
+    from largesteps_torch.benchmarks import micro_scatter, probe_mosaic
+    runs, launches = micro_benchmark_path(card)
+    ok = all(n >= 1 for n in launches.values()) \
+        and runs["probe_mosaic"]["fields_max_err"] == 0.0 \
+        and runs["bench_raster"]["id_match"] >= 0.9999
+    fns = {"onehot_scatter": (micro_scatter.onehot_scatter,
+                              micro_scatter.onehot_scatter_plain),
+           "probe_tile": (probe_mosaic.probe_tile,
+                          probe_mosaic.probe_tile_plain)}
+    replaces = {"onehot_scatter": "benchmarks/micro_scatter.py:61",
+                "probe_tile": "benchmarks/probe_mosaic.py:47"}
+    table = {}
+    for name, tag, a in probe_cases():
+        kern = lambda: fns[name][0](**a)
+        plain = lambda: fns[name][1](**a)
+        got = kern()
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        passed, errs, scales, tol = _probe_holds(name, got, want)
+        caught = all(not _probe_holds(name, got[:i] + (
+            torch.zeros_like(got[i]),) + got[i + 1:], want)[0]
+            for i in range(len(got)))
+        passed = passed and caught
+        ms = time_ms(kern, 50)
+        plain_ms = time_ms(plain, 3, warm=1)
+        library_ms = time_ms(_probe_library(name, a), 20)
+        if name == "onehot_scatter":
+            ids = a["ids"]
+            n_valid = int(((ids >= 0) & (ids < a["n_faces"])).sum())
+            nb_ = nbytes(ids, a["m"], want[0])
+            ops = n_valid * a["m"].shape[-1]
+        else:
+            s = a["slot"]
+            cap = a["recT"].shape[-1]
+            n_valid = int(((s >= 0) & (s < cap) & (s == torch.floor(s)))
+                          .sum())
+            nb_ = nbytes(a["slot"], a["recT"], a["g0"], *want)
+            ops = FLOPS_PROBE_PIXEL * n_valid
+        t_bytes = nb_ / PEAK_BYTES * 1e3
+        t_ops = ops / PEAK_F32 * 1e3
+        row = {"name": name, "route": "cuda",
+               "source": f"largesteps_torch/csrc/{name}.cu",
+               "replaces": replaces[name], "launches": launches[name],
+               "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms}
+        emit({"phase": "probe_kernel", "name": name, "shape": tag,
+              "passed": passed, "max_abs_err": errs,
+              "max_rel_err": [e / sc if sc else 0.0
+                              for e, sc in zip(errs, scales)],
+              "tolerance": tol, "planted_errors_caught": caught,
+              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "bytes": nb_, "flops": ops, "bytes_ms": t_bytes,
+              "ops_ms": t_ops, "valid_entries": n_valid,
+              "launches": launches[name],
+              "shapes": {k: list(v.shape) for k, v in a.items()
+                         if isinstance(v, torch.Tensor)}, "card": card})
+        ok = ok and passed
+        # the row is the main path's shape; the others ride beside it
+        if name not in table:
+            table[name] = {**row, "shape": tag, "other_shapes": []}
+        else:
+            table[name]["other_shapes"].append({
+                k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err")}
+                | {"shape": tag})
+        del got, want
+    torch.cuda.empty_cache()
+    return ok, table
+
+
+def phase_dense_render(card):
+    """One forward and backward of the bench_step scene (13 views at 256²,
+    shaded, boost 3) through ``Renderer(backend="dense")`` and through
+    ``backend="tiles"`` on the card, with the same random cotangent: the
+    images, the gradients with respect to v and n, the share of matching
+    face ids, and each backend's ms and peak bytes.
+
+    The dense antialias takes every pair (``aa_cap`` = all pairs), so it is
+    the capacity-free reference: its default cap, an eighth of the pairs,
+    is below this scene's count of differing pairs a view.  The two
+    backends compute coverage and depth by two formulations (edge functions
+    and barycentric depth against per-tile plane equations) that round
+    apart by an ulp, as ``tests/test_pallas.py`` notes of the JAX
+    package's two.  That decides two things where the exact values tie:
+    the face of a pixel whose centre lies on an edge, and the owner of an
+    antialias pair whose two depths are equal (the scene is symmetric about
+    the image's middle column, so pairs across it tie).  Those pixels (a
+    pixel of another face with its four neighbours, the pairs it is in;
+    both pixels of a pair of another owner) are counted, kept out of the
+    image comparison and given a zero cotangent; everything else is held
+    to the bars, the flipped faces to the id-match bar, and the pixels set
+    aside to 1 in 10³ (a few hundred pairs of this scene tie)."""
+    from largesteps_torch.render.antialias import _auto_cap
+    from largesteps_torch.render.camera import project
+    from largesteps_torch.render.raster import rasterize
+    from largesteps_torch.render.renderer import Renderer, Topology
+    from largesteps_torch.render.tile_raster import rasterize_tiles_fwd
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    from largesteps_torch.profiling import main_path_scene
+    dev = torch.device("cuda")
+    scene = main_path_scene(seed=SEED)
+    f = scene["mesh-source"]["faces"]
+    v0 = torch.as_tensor(scene["mesh-source"]["vertices"], device=dev)
+    with torch.no_grad():
+        n0 = compute_vertex_normals(v0, f, compute_face_normals(v0, f))
+    all_pairs = 256 * 255 * 2
+    rs = {b: Renderer(scene, shading=True, boost=3, backend=b,
+                      aa_cap=all_pairs, device=dev)
+          for b in ("dense", "tiles")}
+    topo = Topology(f)
+    rs["tiles"].check_overflow(v0, topo)    # as the driver sizes the bins
+    with torch.no_grad():
+        v_ndc = project(v0, rs["dense"].mvps)
+        faces = torch.as_tensor(f.astype(np.int64), device=dev)
+        rast_d = rasterize(v_ndc, faces, (256, 256))
+        rast_t = rasterize_tiles_fwd(v_ndc, faces, (256, 256),
+                                     rs["tiles"].bin_cap)
+    ids_d, ids_t = rast_d[..., 3], rast_t[..., 3]
+    flip = ids_d != ids_t
+    near = flip.clone()
+    near[:, 1:] |= flip[:, :-1]
+    near[:, :-1] |= flip[:, 1:]
+    near[:, :, 1:] |= flip[:, :, :-1]
+    near[:, :, :-1] |= flip[:, :, 1:]
+    owner_flips = 0
+    for dim in (1, 2):                    # vertical, horizontal pairs
+        n = ids_d.shape[dim] - 1
+        a, b = (lambda x: x.narrow(dim, 0, n)), (lambda x: x.narrow(dim, 1, n))
+        z = [torch.where(r[..., 3] > 0, r[..., 2], 3.4e38)
+             for r in (rast_d, rast_t)]
+        other = (a(z[0]) <= b(z[0])) != (a(z[1]) <= b(z[1]))
+        other &= a(ids_d) != b(ids_d)
+        owner_flips += int(other.sum())
+        a(near).logical_or_(other)
+        b(near).logical_or_(other)
+    keep = (~near)[..., None].float()
+    w = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(len(scene["view_mats"]), 256, 256, 4)).astype(np.float32),
+        device=dev)
+    out, ms, peaks = {}, {}, {}
+    for backend, r in rs.items():
+        def run(wk):
+            v = v0.clone().requires_grad_(True)
+            n = n0.clone().requires_grad_(True)
+            img = r.render(v, n, topo)
+            (wk * img).sum().backward()
+            return img.detach(), v.grad, n.grad
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out[backend] = run(w * keep)
+        torch.cuda.synchronize()
+        peaks[backend] = torch.cuda.max_memory_allocated()
+        out[backend + "_all"] = run(w)
+        ms[backend] = time_ms(lambda: run(w), 3, warm=0)
+    (i_d, gv_d, gn_d), (i_t, gv_t, gn_t) = out["dense"], out["tiles"]
+    d = (i_d.double() - i_t.double()).abs() * keep
+    n_above = int((d > 1e-5).sum())
+    e_v, e_n = max_abs(gv_t, gv_d), max_abs(gn_t, gn_d)
+    s_v, s_n = float(gv_d.abs().max()), float(gn_d.abs().max())
+    (a_d, av_d, an_d), (a_t, av_t, an_t) = out["dense_all"], \
+        out["tiles_all"]
+    id_match = float((~flip).double().mean())
+    pairs = ((ids_d[:, :, 1:] != ids_d[:, :, :-1]).sum(dim=(1, 2))
+             + (ids_d[:, 1:] != ids_d[:, :-1]).sum(dim=(1, 2)))
+    passed = (n_above <= d.numel() // 10_000 and float(d.max()) <= 1e-3
+              and e_v <= 1e-4 * s_v and e_n <= 1e-4 * s_n
+              and id_match >= 0.9999 and s_v > 0 and s_n > 0
+              and int(near.sum()) <= near.numel() // 1_000
+              and bool(torch.isfinite(i_d).all()))
+    emit({"phase": "dense_render", "passed": passed,
+          "img_max_abs": float(d.max()), "img_values_above_1e-5": n_above,
+          "img_values": d.numel(), "dv_max_abs": e_v, "dv_scale": s_v,
+          "dn_max_abs": e_n, "dn_scale": s_n, "id_match": id_match,
+          "id_mismatches": int(flip.sum()), "owner_flips": owner_flips,
+          "pixels_set_aside": int(near.sum()),
+          "with_them": {"img_max_abs": max_abs(a_d, a_t),
+                        "dv_max_rel": max_abs(av_t, av_d)
+                        / float(av_d.abs().max()),
+                        "dn_max_rel": max_abs(an_t, an_d)
+                        / float(an_d.abs().max())},
+          "aa_pairs_max": int(pairs.max()), "aa_cap": all_pairs,
+          "aa_auto_cap": _auto_cap(all_pairs),
+          "tolerance": "images: at most 1 value in 1e4 above 1e-5, none "
+                       "above 1e-3; gradients 1e-4 x max|g|; ids 99.99 %; "
+                       "set aside (at most 1 in 1e3): pixels whose ids "
+                       "differ with their 4 neighbours, pairs whose owner "
+                       "differs",
+          "ms": ms, "peak_bytes": peaks, "tiles_cap": rs["tiles"].bin_cap,
+          "card": card})
+    del out
+    torch.cuda.empty_cache()
+    return passed
+
+
+def phase_dense_path(card):
+    """The port's optimize_shape on the bench_step scene at 13 views of
+    250², a size that does not tile, so ``"auto"`` draws it with the dense
+    renderer: STEPS steps, the loss falling, no tile kernel launched."""
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.driver.optimize_shape import default_params
+    from largesteps_torch.io.synth import make_scene
+    from largesteps_torch.render import kernels as K
+    from largesteps_torch.profiling import MAIN_PATH_PARAMS
+    scene = make_scene(source=("icosphere", 4), target=("gourd", 4),
+                       n_views=13, res=250, seed=SEED)
+    params = {**MAIN_PATH_PARAMS, "steps": STEPS}
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = optimize_shape(scene, params, device="cuda")
+    launches = dict(K.LAUNCHES)
+    losses = res["losses"][:, 0]
+    prof = res["prof"]
+    first = prof["first_step_s"]
+    steady = (STEPS - 1) / (res["wall_time"] - first)
+    passed = (bool(np.isfinite(res["losses"]).all())
+              and losses[-1] < losses[0] and prof["backend"] == "dense"
+              and prof["raster_chunk"] == 128
+              and default_params()["raster_chunk"] == 128
+              and not any(launches.values()))
+    emit({"phase": "dense_path", "passed": passed, "steps": STEPS,
+          "res": 250, "backend": prof["backend"],
+          "raster_chunk": prof["raster_chunk"], "it_per_s": steady,
+          "first_step_s": first, "wall_s": res["wall_time"],
+          "setup_s": prof["setup_s"], "loss_first": float(losses[0]),
+          "loss_last": float(losses[-1]), "tile_launches": launches,
+          "peak_bytes": torch.cuda.max_memory_allocated(), "card": card})
+    return passed
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -637,6 +994,9 @@ def main():
     for phase, fn in (("kernels", lambda c: phase_kernels(c, ptxas)),
                       ("render", phase_render_cpu_vs_card),
                       ("main_path", phase_main_path),
+                      ("probe_kernels", phase_probe_kernels),
+                      ("dense_render", phase_dense_render),
+                      ("dense_path", phase_dense_path),
                       ("large_f_kernels", phase_large_f_kernels),
                       ("large_f_pipes", phase_large_f_pipes),
                       ("large_f", phase_large_f)):
@@ -652,11 +1012,15 @@ def main():
     m_ok, launches = results["main_path"] or (False, {})
     fk_ok, f_table = results["large_f_kernels"] or (False, {})
     f_ok, f_launches, f_cap = results["large_f"] or (False, {}, None)
+    p_ok, p_table = results["probe_kernels"] or (False, {})
     # the kernels were held at the run's shapes: its cap is theirs
     fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
     failed = [p for p, ok in (("kernels", k_ok),
                               ("render", results["render"]),
                               ("main_path", m_ok),
+                              ("probe_kernels", p_ok),
+                              ("dense_render", results["dense_render"]),
+                              ("dense_path", results["dense_path"]),
                               ("large_f_kernels", fk_ok),
                               ("large_f_pipes", results["large_f_pipes"]),
                               ("large_f", f_ok)) if not ok]
@@ -669,7 +1033,10 @@ def main():
         row["large_f"] = {key: big[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "cap")}
         row["large_f"]["launches"] = f_launches[k]
-    emit({"kernels": list(table.values())})
+    # the micro-benchmarks' kernels: their own launches, no large-F run
+    for k, row in p_table.items():
+        row["ptxas"] = ran(ptxas[k], k)
+    emit({"kernels": list(table.values()) + list(p_table.values())})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -51,8 +51,14 @@ _SIGNATURES = {
     # bytes of global scratch the antialias owner tables need, from
     # (tiles, cap); exported by aa_fwd's library, used by both kernels
     "ls_aa_scratch": ([_I, _I], ctypes.c_longlong),
+    # the rasterizer micro-benchmarks' kernels (largesteps_torch.benchmarks)
+    "ls_onehot_scatter": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
+    "ls_probe_tile": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
+    # bytes of shared memory a probe_tile block takes at a cap
+    "ls_probe_tile_smem": ([_I], ctypes.c_longlong),
 }
-_KERNELS = ("raster_fwd", "raster_bwd", "aa_fwd", "aa_bwd")
+_KERNELS = ("raster_fwd", "raster_bwd", "aa_fwd", "aa_bwd", "onehot_scatter",
+            "probe_tile")
 
 _lock = threading.Lock()
 _handles: dict = {}

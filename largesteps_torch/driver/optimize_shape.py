@@ -8,10 +8,13 @@ and is fetched at the end; every ``nan_check_every`` steps the host checks
 it for divergence.  Checkpoints use the JAX package's format, so a run of
 either package resumes in the other.
 
-Meshes of ``host_bin_faces`` faces or more take the large-F path: bins
-computed on the host at epoch build with a ``rebin_margin`` px bbox
-expansion, recomputed on the device every ``rebin_every`` steps or as soon
-as a vertex has moved margin/2 px since (``rebin_auto``; the step emits the
+The renderer takes the tile kernels where the resolution tiles into
+32×128 pixels and the dense rasterizer (``raster_chunk`` faces a step)
+elsewhere.  On the tiles, meshes of ``host_bin_faces`` faces or more take
+the large-F path: bins computed on the host at epoch build with a
+``rebin_margin`` px bbox expansion, recomputed on the device every
+``rebin_every`` steps or as soon as a vertex has moved margin/2 px since
+(``rebin_auto``; the step emits the
 displacement, which the host reads only once the step has run).  At most
 ``max_inflight`` steps are queued on the device.
 
@@ -65,6 +68,7 @@ def default_params():
         "bilaplacian": True,
         "record_verts": False,
         "sharding": None,
+        "raster_chunk": 128,    # faces a step of the dense rasterizer
         # large-F path: meshes of this many faces or more take precomputed
         # bins (host at epoch build, device mid-run) instead of the traced
         # per-step binning
@@ -355,7 +359,8 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
     _sync(device)
     setup["topology_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    st.use_host_bins = st.topology.n_faces >= int(p["host_bin_faces"])
+    st.use_host_bins = (renderer.backend == "tiles" and
+                        st.topology.n_faces >= int(p["host_bin_faces"]))
     if st.use_host_bins:
         margin, cull = p["rebin_margin"], p["cull_backfaces"]
         st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
@@ -377,7 +382,7 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
                 v_src, device=device), renderer.mvps))
     else:
         # size the bins before the first render: an overflowing bin
-        # under-draws its tile with no signal
+        # under-draws its tile with no signal (a no-op on the dense backend)
         renderer.check_overflow(v_src, st.topology)
     _sync(device)
     setup["host_bins_s"] = time.perf_counter() - t0
@@ -495,10 +500,11 @@ def _prepare(scene, p, dev) -> _Run:
             n_ref = compute_vertex_normals(
                 v_ref, f_ref, compute_face_normals(v_ref, f_ref))
         renderer = Renderer(scene, shading=p["shading"], boost=p["boost"],
-                            device=dev)
+                            chunk=p["raster_chunk"], device=dev)
         ref_topo = Topology(f_ref)
         t0 = time.perf_counter()
-        if ref_topo.n_faces >= int(p["host_bin_faces"]):
+        if renderer.backend == "tiles" \
+                and ref_topo.n_faces >= int(p["host_bin_faces"]):
             ref_bins = _host_bins(renderer, v_ref.cpu().numpy(), ref_topo,
                                   0.0)[0]
             ref_imgs = renderer.render(v_ref, n_ref, ref_topo, bins=ref_bins)
@@ -622,6 +628,8 @@ def optimize_shape(scene, params=None, device=None):
     result["wall_time"] = t - t0
     prof["max_window_disp_px"] = st.max_window_disp
     prof["bin_cap"] = st.bin_cap if st.use_host_bins else renderer.bin_cap
+    prof["backend"] = renderer.backend
+    prof["raster_chunk"] = renderer.chunk
     if st.solver is not None:
         big = st.solver._big
         prof["solver"] = {"tier": st.solver.tier,

@@ -1,12 +1,16 @@
 """Differentiable multi-view renderer.
 
-Port of ``largesteps_tpu/render/renderer.py`` on the fused CUDA pipelines
-(:mod:`largesteps_torch.render.pipeline`): project all cameras → rasterize
-→ interpolate SH vertex lighting (or constant white for silhouettes) →
-composite over the environment backgrounds → antialias, with ``boost`` on
-the antialias position gradients.  ``render(..., bins=)`` takes the
-large-F path's precomputed bins.  The pure-PyTorch ``backend="xla"``
-counterpart and device meshes are later slices (ROADMAP.md Queue 1).
+Port of ``largesteps_tpu/render/renderer.py``: project all cameras →
+rasterize → interpolate SH vertex lighting (or constant white for
+silhouettes) → composite over the environment backgrounds → antialias, with
+``boost`` on the antialias position gradients.  Two backends: ``"tiles"``
+(JAX's ``"pallas"``), the fused pipelines of
+:mod:`largesteps_torch.render.pipeline` on the CUDA tile kernels, which take
+``render(..., bins=)`` for the large-F path; and ``"dense"`` (JAX's
+``"xla"``), the capacity-free PyTorch rasterizer and antialias of
+:mod:`largesteps_torch.render.raster` and
+:mod:`largesteps_torch.render.antialias`, at any resolution.  Device meshes
+are a later slice (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -17,10 +21,11 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .antialias import face_adjacency
+from .antialias import antialias, face_adjacency
 from .camera import persp_proj, build_mvps, project
 from .pipeline import (RenderPipeline, RenderPipelineBig, check_bin_overflow,
                        suggest_cap, TILE_H, TILE_W)
+from .raster import rasterize, interpolate
 from .sh import sh_matrices, sh_eval
 from .texture import texture_bilinear
 
@@ -42,6 +47,17 @@ class Topology:
         # (res, shading, boost, cap, prebinned, slots_k, camera-sequential)
         # -> pipeline
         self._pipe_cache = {}
+        self._dense = {}        # device -> (faces, opp) tensors
+
+    def dense_tables(self, device):
+        """faces and opp as int64 tensors on ``device`` (the dense path's),
+        uploaded once per device."""
+        key = str(device)
+        if key not in self._dense:
+            as_t = lambda a: torch.as_tensor(a.astype(np.int64),
+                                             device=device)
+            self._dense[key] = (as_t(self.faces), as_t(self.opp))
+        return self._dense[key]
 
     @property
     def n_faces(self) -> int:
@@ -98,25 +114,36 @@ class Renderer:
     ``scene_params`` holds near_clip, far_clip, fov, res_x, res_y,
     view_mats, envmap and envmap_scale; ``shading`` selects shaded or
     silhouette images; ``boost`` multiplies the antialias position
-    gradients.  The resolution must tile into 32×128 pixel tiles.
+    gradients.  ``backend``: ``"tiles"`` (the CUDA tile kernels; the
+    resolution must tile into 32×128 pixels), ``"dense"`` (any resolution)
+    or ``"auto"``, which takes tiles where the resolution tiles and dense
+    elsewhere, as JAX's ``"auto"`` picks ``"pallas"`` or ``"xla"``.
+    ``chunk`` is the dense rasterizer's faces a step, ``aa_cap`` the dense
+    antialias's pair capacity (None: auto), ``bin_cap`` the tile bins'.
     """
 
     def __init__(self, scene_params, shading: bool = True, boost: float = 1.0,
-                 backend: str = "auto", bin_cap: int = 768, device=None):
-        if backend != "auto":
-            raise NotImplementedError(
-                f"backend {backend!r}: the pure-PyTorch rasterizer is the "
-                f"backend='xla' slice (ROADMAP.md Queue 1, item 4)")
+                 chunk: int = 128, backend: str = "auto", bin_cap: int = 768,
+                 aa_cap: int | None = None, device=None):
         self.device = resolve_device(device)
         near = scene_params["near_clip"]
         far = scene_params["far_clip"]
         self.fov_x = scene_params["fov"]
         w = scene_params["res_x"]
         h = scene_params["res_y"]
-        if h % 32 or w % 128:
-            raise NotImplementedError(
-                f"resolution {h}x{w} does not tile into 32x128 pixel tiles; "
-                f"other sizes need the backend='xla' slice")
+        if backend == "auto":
+            backend = "tiles" if (h % TILE_H == 0 and w % TILE_W == 0) \
+                else "dense"
+        if backend not in ("tiles", "dense"):
+            raise ValueError(f"backend {backend!r}: 'auto', 'tiles' or "
+                             f"'dense'")
+        if backend == "tiles" and (h % TILE_H or w % TILE_W):
+            raise ValueError(f"resolution {h}x{w} does not tile into "
+                             f"{TILE_H}x{TILE_W} pixel tiles; use "
+                             f"backend='dense'")
+        self.backend = backend
+        self.chunk = int(chunk)
+        self.aa_cap = aa_cap
         self.res = (h, w)
         self.proj_mat = persp_proj(self.fov_x, w / h, near, far)
         self.view_mats = np.stack([np.asarray(v)
@@ -142,7 +169,10 @@ class Renderer:
         """Measure the bin occupancy of ``v`` and, with ``grow``, resize
         ``bin_cap`` in both directions: up to fit, down (with hysteresis,
         never below the configured cap) when it is more than twice too
-        large.  Returns the measured max occupancy."""
+        large.  Returns the measured max occupancy; 0 on the dense
+        backend, which has no bins."""
+        if self.backend != "tiles":
+            return 0
         v = torch.as_tensor(v, dtype=torch.float32, device=self.device)
         faces = torch.as_tensor(topology.faces.astype(np.int64),
                                 device=self.device)
@@ -175,9 +205,13 @@ class Renderer:
         differentiable with respect to v and n.
 
         ``bins``: precomputed ``(bins (C, T, cap), counts (C, T)[, fslots
-        (C, F+1, K)])`` device tensors (the large-F path; no gradient), in
-        place of the traced per-step binning; the pipe is chosen by
-        :meth:`camera_sequential`."""
+        (C, F+1, K)])`` device tensors (the large-F path, tiles backend
+        only; no gradient), in place of the traced per-step binning; the
+        pipe is chosen by :meth:`camera_sequential`."""
+        if self.backend == "dense":
+            if bins is not None:
+                raise ValueError("bins are the tiles backend's")
+            return self._render_dense(v, n, topology)
         prebinned = bins is not None
         fslots = None
         if prebinned:
@@ -205,3 +239,20 @@ class Renderer:
         if self.shading:
             return pipe(v_ndc, sh_eval(self.sh_M, n) / np.pi, self.bgs, *extra)
         return pipe(v_ndc, torch.ones_like(v), None, *extra)
+
+    def _render_dense(self, v, n, topology: Topology):
+        """The dense path (``largesteps_tpu/render/renderer.py:240-253``)."""
+        faces, opp = topology.dense_tables(self.device)
+        v_ndc = project(v, self.mvps)
+        rast = rasterize(v_ndc, faces, self.res, self.chunk)
+        if self.shading:
+            light = interpolate(sh_eval(self.sh_M, n), rast, faces)
+            alpha = torch.ones_like(light[..., :1])
+            col = torch.cat([light / np.pi, alpha], dim=-1)
+            covered = rast[..., 3:4] != 0
+            composited = torch.where(covered, col, self.bgs)
+            return antialias(composited, rast, v_ndc, faces, opp, self.boost,
+                             cap=self.aa_cap)
+        col = interpolate(torch.ones_like(v), rast, faces)
+        return antialias(col, rast, v_ndc, faces, opp, self.boost,
+                         cap=self.aa_cap)

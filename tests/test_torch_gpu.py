@@ -36,13 +36,21 @@ cotangents from a numpy seed.
   solve on the card against a float64 CPU solve; the batched and the
   camera-sequential prebinned pipes on the card against the same pipes on
   the CPU.
+* The micro-benchmarks' kernels: ``onehot_scatter`` with P not a multiple
+  of 4,096, ids out of range (−1, n_faces, far past it) and 18 and 32
+  channels; ``probe_tile`` at cap 256 and 768, 1 and 208 tiles, on random
+  slots, on slots all −1 and on slots all equal (every pixel of a tile on
+  one slot), and on slot values that name no column (fractions, −0.0,
+  cap itself).
+* The dense renderer on the card against the same render on the CPU.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
 plain version's operations in order); per-slot sums 1e-5 × max|sum| (atomics
-add in another order than ``index_add_``); bins exact; the banded solve 1e-5
-relative; pipe images 1e-5 absolute and gradients 1e-4 × max|g| (the
-projection and the glue run as PyTorch's CUDA kernels).
+add in another order than ``index_add_``, and so do onehot_scatter's and
+probe_tile's sums); probe_tile's fields exact; bins exact; the banded solve
+1e-5 relative; pipe and dense images 1e-5 absolute and gradients 1e-4 ×
+max|g| (the projection and the glue run as PyTorch's CUDA kernels).
 """
 import numpy as np
 import pytest
@@ -509,3 +517,120 @@ def test_gpu_host_copy_of_a_step_scalar_does_not_wait():
     assert h.device.type == "cpu" and h.is_pinned()
     event.synchronize()
     assert float(h) == 7.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [18, 32])
+def test_gpu_onehot_scatter(ch):
+    """P = 5,000 (not a multiple of 4,096) over 3 cameras, ids from −1 to
+    past n_faces: the out-of-range ones add nothing."""
+    from largesteps_torch.benchmarks import micro_scatter as ms
+    dev = _card()
+    rng = np.random.default_rng(ch)
+    C, P, F = 3, 5_000, 600
+    ids = rng.integers(-1, F + 2, (C, P)).astype(np.int32)
+    ids[0, :7] = [-1, F, F + 1, 2 ** 30, -2 ** 31, 0, F - 1]
+    m = rng.normal(size=(C, P, ch)).astype(np.float32)
+    ids_t, m_t = torch.as_tensor(ids, device=dev), torch.as_tensor(m, device=dev)
+    n0 = ms.LAUNCHES["onehot_scatter"]
+    got = ms.onehot_scatter(ids_t, m_t, F)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["onehot_scatter"] == n0 + 1
+    want = ms.onehot_scatter_plain(ids_t, m_t, F)
+    ok = (ids >= 0) & (ids < F)
+    ref = np.zeros((F, ch))
+    np.add.at(ref, ids[ok], m[ok].astype(np.float64))
+    scale = float(np.abs(ref).max())
+    assert _max_abs(got, want) < 1e-5 * scale
+    assert np.abs(got.cpu().numpy() - ref).max() < 1e-5 * scale
+
+
+def _probe_slots(kind, B, cap, rng):
+    if kind == "random":
+        return rng.integers(-1, cap, (B, 32, 128)).astype(np.float32)
+    if kind == "all_minus_one":
+        return np.full((B, 32, 128), -1.0, np.float32)
+    if kind == "all_equal":
+        return np.repeat(rng.integers(0, cap, (B, 1, 1)), 32 * 128) \
+            .reshape(B, 32, 128).astype(np.float32)
+    # values that name no column, among ones that do
+    s = rng.integers(-1, cap, (B, 32, 128)).astype(np.float32)
+    bad = np.array([0.5, cap, cap + 0.5, -0.5, 1e9, -1e9, np.nan], np.float32)
+    s.reshape(B, -1)[:, :bad.size] = bad
+    s.reshape(B, -1)[:, bad.size] = -0.0               # names column 0
+    return s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,cap", [(1, 256), (1, 768), (208, 256),
+                                   (208, 768)])
+@pytest.mark.parametrize("kind", ["random", "all_minus_one", "all_equal",
+                                  "no_column"])
+def test_gpu_probe_tile(B, cap, kind):
+    from largesteps_torch.benchmarks import probe_mosaic as pm
+    dev = _card()
+    rng = np.random.default_rng(B + cap)
+    slot = _probe_slots(kind, B, cap, rng)
+    recT = rng.normal(size=(B, 32, cap)).astype(np.float32)
+    g0 = rng.normal(size=(B, 32, 128)).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (slot, recT, g0)]
+    n0 = pm.LAUNCHES["probe_tile"]
+    fields, S = pm.probe_tile(*args)
+    torch.cuda.synchronize()
+    assert pm.LAUNCHES["probe_tile"] == n0 + 1
+    fw, Sw = pm.probe_tile_plain(*args)
+    assert torch.equal(fields, fw)
+    scale = max(float(Sw.abs().max()), 1e-30)
+    assert _max_abs(S, Sw) <= 1e-5 * scale
+    if kind == "all_minus_one":
+        assert not bool(fields.any()) and not bool(S.any())
+    else:
+        fo, So = pm.oracle(np.nan_to_num(slot, nan=-1.0), recT, g0)
+        assert np.array_equal(fields.cpu().numpy(), fo)
+        assert np.abs(S.cpu().numpy() - So).max() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_gpu_probe_tile_cap_past_shared_memory_raises():
+    from largesteps_torch.benchmarks import probe_mosaic as pm
+    dev = _card()
+    z = lambda *s: torch.zeros(s, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        pm.probe_tile(z(1, 32, 128), z(1, 32, 2048), z(1, 32, 128))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shading", [True, False])
+def test_gpu_dense_renderer_matches_cpu(shading):
+    """icosphere-3 in 2 views of 72×56 (no tiling), boost 3, through the
+    dense renderer on the card and on the CPU."""
+    dev = _card()
+    scene = make_scene(source=("icosphere", 3), target=("gourd", 2),
+                       n_views=2, res=72)
+    scene["res_x"] = 56
+    f = scene["mesh-source"]["faces"]
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    from largesteps_torch.render.renderer import Topology
+    v0 = torch.as_tensor(scene["mesh-source"]["vertices"])
+    n0 = compute_vertex_normals(v0, f, compute_face_normals(v0, f))
+    w = None
+    out = {}
+    for d in ("cpu", dev):
+        r = Renderer(scene, shading=shading, boost=3, device=d)
+        assert r.backend == "dense"
+        v = v0.to(d).clone().requires_grad_(True)
+        n = n0.to(d).clone().requires_grad_(True)
+        img = r.render(v, n, Topology(f))
+        if w is None:
+            w = torch.as_tensor(np.random.default_rng(2).normal(
+                size=tuple(img.shape)).astype(np.float32))
+        (w.to(d) * img).sum().backward()
+        out[str(d)] = (img.detach().cpu(), v.grad.cpu(),
+                       None if n.grad is None else n.grad.cpu())
+    (ic, gc, nc), (ig, gg, ng) = out["cpu"], out[str(dev)]
+    assert float(ic.abs().max()) > 0.1
+    assert _max_abs(ig, ic) < 1e-5
+    assert _max_abs(gg, gc) < 1e-4 * float(gc.abs().max())
+    if shading:
+        assert _max_abs(ng, nc) < 1e-4 * float(nc.abs().max())
