@@ -17,7 +17,10 @@ banded solver).  Between the two, the rasterizer micro-benchmarks' path:
 ``largesteps_torch.benchmarks`` (micro_scatter at the main path's and at
 nefertiti's shape, probe_mosaic, bench_raster) with the launch counts of
 their two kernels read around it, each of the two kernels against its
-plain version (``probe_kernels``); the dense renderer against the tile
+plain version (``probe_kernels``: onehot_scatter also on the slot table
+of one main-path backward, as ``scatter_via_faces`` lays it out; each
+kernel's time by CUDA events and its device time by ``torch.profiler``;
+the launch shape of each); the dense renderer against the tile
 kernels at 13 × 256² (``dense_render``); and 20 steps of the driver on the
 bench_step scene at 13 × 250², which only the dense renderer draws
 (``dense_path``).  Prints one JSON line per phase, then the kernel table,
@@ -97,6 +100,30 @@ def time_ms(fn, reps, warm=2):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, reps):
+    """Mean milliseconds of device work (kernels, memsets, copies) per call
+    of ``fn`` over ``reps`` calls, by ``torch.profiler``'s trace of the card;
+    None where the trace holds no device work."""
+    from torch.profiler import ProfilerActivity, profile
+    from largesteps_torch import _cuda
+    from largesteps_torch.profiling import _DEVICE_CATS
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(_cuda._BUILD, exist_ok=True)
+    path = os.path.join(_cuda._BUILD, f"device_ms_{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    os.remove(path)
+    us = sum(e["dur"] for e in events
+             if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATS)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def nbytes(*ts):
@@ -211,6 +238,15 @@ def instance(name, cap, channels):
     return f"ILi{channels}E"
 
 
+def micro_instance(name, launch):
+    """What the mangled name of the micro-benchmark kernel that ran holds:
+    probe_tile's one kernel; onehot_scatter's instantiation for the vector
+    width of its plan (``launch_shape``)."""
+    if name == "probe_tile":
+        return "probe_tile_kernel"
+    return f"ILi{launch['vector']}EE"
+
+
 def main_path_inputs():
     """The kernels' inputs of one forward and backward of the main path on
     the card: bins of the source mesh in 13 views at 256², the forward
@@ -257,7 +293,7 @@ def main_path_inputs():
     return {"occ": occ, "cap": cap, "res": res, "rfb": rfb, "rbb": rbb,
             "counts": counts, "fid": fid, "z": z, "slot": slot,
             "comp": comp, "d_out": d_out, "d_col": d_col,
-            "n_faces": f.shape[0]}
+            "n_faces": f.shape[0], "bins": bins}
 
 
 def host_bins(renderer, verts, faces, margin, **kw):
@@ -668,40 +704,88 @@ def micro_benchmark_path(card):
     return runs, launches
 
 
-def probe_cases():
-    """The two kernels' inputs, the main path's shape of each first:
-    onehot_scatter at the main path's shape and at nefertiti's, ids and
-    rows from the seed; probe_tile on the main path's real data (its 208
-    tiles at the fitted cap: the slot plane, the forward records' 32
-    columns as recT, and the colour cotangent's first channel as g0) and at
-    the JAX probe's tile (one, cap 256, seeded)."""
+def probe_cases(kinds=("onehot_scatter", "traffic", "probe_tile")):
+    """The inputs of ``kinds``, the main path's shape of each kernel first,
+    as (kernel, shape, arguments, extra): onehot_scatter at the main path's
+    shape and at nefertiti's, ids and rows from the seed, and (``traffic``)
+    on the main path's own traffic (the per-slot table of one backward, ``table18``,
+    built as ``RenderPipeline.backward`` builds it, into ``face_ids``'
+    rows, as ``scatter_via_faces`` sums it; extra: that function's
+    ``face_sums`` and the share of slots on sentinels); probe_tile on the
+    main path's real data (its 208 tiles at the fitted cap: the slot plane,
+    the forward records' 32 columns as recT, and the colour cotangent's
+    first channel as g0) and at the JAX probe's tile (one, cap 256,
+    seeded)."""
+    from types import SimpleNamespace
     from largesteps_torch.render import kernels as K
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     cases = []
-    for tag, (C, P, F, ch) in (("main", (13, 65_536, 5_121, 32)),
-                               ("nefertiti", NEFERTITI_SCATTER)):
-        ids = torch.randint(0, F, (C, P), generator=gen, dtype=torch.int32)
-        m = torch.randn((C, P, ch), generator=gen)
-        cases.append(("onehot_scatter", tag,
-                      {"ids": ids.to(dev), "m": m.to(dev), "n_faces": F}))
+    if "onehot_scatter" in kinds:
+        for tag, (C, P, F, ch) in (("main", (13, 65_536, 5_121, 32)),
+                                   ("nefertiti", NEFERTITI_SCATTER)):
+            ids = torch.randint(0, F, (C, P), generator=gen,
+                                dtype=torch.int32)
+            m = torch.randn((C, P, ch), generator=gen)
+            cases.append(("onehot_scatter", tag, {
+                "ids": ids.to(dev), "m": m.to(dev), "n_faces": F}, {}))
     m = main_path_inputs()
-    tiles = lambda x: K._to_tiles(x).reshape(-1, 32, 128).contiguous()
-    rfb = m["rfb"]
-    recT = rfb.reshape(-1, rfb.shape[3], 32).transpose(1, 2).contiguous()
-    cases.append(("probe_tile", f"main_path_{recT.shape[0]}x{m['cap']}", {
-        "slot": tiles(m["slot"]), "recT": recT,
-        "g0": tiles(m["d_col"][..., 0].contiguous())}))
+    if "traffic" in kinds:
+        from largesteps_torch.render.pipeline import (_backward_kernels,
+                                                      face_ids, face_sums)
+        pipe = SimpleNamespace(resolution=m["res"], shading=True, boost=3.0)
+        cov = (m["fid"] > 0)[..., None]
+        table18, _ = _backward_kernels(pipe, m["rbb"], m["counts"],
+                                       m["slot"], m["fid"], m["z"],
+                                       m["comp"], cov, m["d_out"])
+        F, bins = m["n_faces"], m["bins"]
+        cases.append(("onehot_scatter", "main_path_traffic", {
+            "ids": face_ids(bins, F).to(torch.int32).reshape(1, -1)
+            .contiguous(),
+            "m": table18.reshape(1, -1, 18).contiguous(),
+            "n_faces": table18.shape[0] * (F + 1)}, {
+            "face_sums": face_sums(table18, bins, F),
+            "sentinel_share": float((bins < 0).float().mean())}))
+    if "probe_tile" in kinds:
+        tiles = lambda x: K._to_tiles(x).reshape(-1, 32, 128).contiguous()
+        rfb = m["rfb"]
+        recT = rfb.reshape(-1, rfb.shape[3], 32).transpose(1, 2).contiguous()
+        cases.append(("probe_tile", f"main_path_{recT.shape[0]}x{m['cap']}",
+                      {"slot": tiles(m["slot"]), "recT": recT,
+                       "g0": tiles(m["d_col"][..., 0].contiguous())}, {}))
+        rng = np.random.default_rng(SEED)
+        up = lambda a: torch.as_tensor(a, device=dev)
+        cases.append(("probe_tile", f"seeded_1x{PROBE_CAP}", {
+            "slot": up(rng.integers(-1, PROBE_CAP, (1, 32, 128)).astype(
+                np.float32)),
+            "recT": up(rng.standard_normal((1, 32, PROBE_CAP)).astype(
+                np.float32)),
+            "g0": up(rng.standard_normal((1, 32, 128)).astype(np.float32))},
+            {}))
     del m
-    rng = np.random.default_rng(SEED)
-    up = lambda a: torch.as_tensor(a, device=dev)
-    cases.append(("probe_tile", f"seeded_1x{PROBE_CAP}", {
-        "slot": up(rng.integers(-1, PROBE_CAP, (1, 32, 128)).astype(
-            np.float32)),
-        "recT": up(rng.standard_normal((1, 32, PROBE_CAP)).astype(
-            np.float32)),
-        "g0": up(rng.standard_normal((1, 32, 128)).astype(np.float32))}))
     return cases
+
+
+def launch_shape(name, a):
+    """The grid of kernel ``name`` at arguments ``a``: blocks, threads and
+    dynamic shared bytes a block, blocks an SM holds, and waves of the
+    card's SMs that many deep."""
+    from largesteps_torch import _cuda
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if name == "probe_tile":
+        B, _, cap = a["recT"].shape
+        blocks, threads, smem, per_sm, items = _cuda.launch_shape(
+            name, B, cap)[:5]
+        out = {"work_items": items}
+    else:
+        C, P, ch = a["m"].shape
+        vec, W, parts, windows, threads, smem, per_sm = \
+            _cuda.launch_shape(name, C * P, ch)[:7]
+        blocks = parts * windows
+        out = {"vector": vec, "window": W, "windows": windows}
+    return {**out, "blocks": blocks, "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": per_sm, "sms": sms,
+            "waves": blocks / (per_sm * sms)}
 
 
 def _probe_library(name, a):
@@ -745,8 +829,11 @@ def _probe_holds(name, got, want):
 def phase_probe_kernels(card):
     """The micro-benchmarks' path with its launch counts, then each of its
     two kernels against its plain version at the shapes of
-    :func:`probe_cases`: errors, planted errors, ms, plain ms, the library
-    calls' ms, bytes and bound.  Returns (passed, {name: row})."""
+    :func:`probe_cases` (on the main path's traffic, onehot_scatter also
+    against ``face_sums``): errors, planted errors, ms (the wrapper's call,
+    CUDA events), device ms (``torch.profiler``), plain ms, the library
+    calls' ms, bytes, bound and the launch shape.  Returns (passed, {name:
+    row})."""
     from largesteps_torch.benchmarks import micro_scatter, probe_mosaic
     runs, launches = micro_benchmark_path(card)
     ok = all(n >= 1 for n in launches.values()) \
@@ -759,7 +846,7 @@ def phase_probe_kernels(card):
     replaces = {"onehot_scatter": "benchmarks/micro_scatter.py:61",
                 "probe_tile": "benchmarks/probe_mosaic.py:47"}
     table = {}
-    for name, tag, a in probe_cases():
+    for name, tag, a, extra in probe_cases():
         kern = lambda: fns[name][0](**a)
         plain = lambda: fns[name][1](**a)
         got = kern()
@@ -771,8 +858,23 @@ def phase_probe_kernels(card):
         caught = all(not _probe_holds(name, got[:i] + (
             torch.zeros_like(got[i]),) + got[i + 1:], want)[0]
             for i in range(len(got)))
+        traffic = {}
+        if "face_sums" in extra:
+            # the per-face table that scatter_via_faces builds by index_add_
+            fs = extra["face_sums"]
+            e_fs, s_fs = max_abs(got[0], fs), float(fs.abs().max())
+            traffic = {"face_sums_max_abs_err": e_fs,
+                       "face_sums_max": s_fs,
+                       "face_sums_held": e_fs <= 1e-5 * s_fs,
+                       "face_sums_planted_caught":
+                           max_abs(torch.zeros_like(fs), fs) > 1e-5 * s_fs,
+                       "sentinel_share": extra["sentinel_share"]}
+            passed = passed and traffic["face_sums_held"] \
+                and traffic["face_sums_planted_caught"]
         passed = passed and caught
         ms = time_ms(kern, 50)
+        dev_ms = device_ms(kern, 20)
+        shape = launch_shape(name, a)
         plain_ms = time_ms(plain, 3, warm=1)
         library_ms = time_ms(_probe_library(name, a), 20)
         if name == "onehot_scatter":
@@ -795,16 +897,18 @@ def phase_probe_kernels(card):
                "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": library_ms}
+               "library_ms": library_ms, "device_ms": dev_ms,
+               "launch": shape}
         emit({"phase": "probe_kernel", "name": name, "shape": tag,
               "passed": passed, "max_abs_err": errs,
               "max_rel_err": [e / sc if sc else 0.0
                               for e, sc in zip(errs, scales)],
               "tolerance": tol, "planted_errors_caught": caught,
-              "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+              "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
               "bytes": nb_, "flops": ops, "bytes_ms": t_bytes,
               "ops_ms": t_ops, "valid_entries": n_valid,
-              "launches": launches[name],
+              "launches": launches[name], "launch": shape, **traffic,
               "shapes": {k: list(v.shape) for k, v in a.items()
                          if isinstance(v, torch.Tensor)}, "card": card})
         ok = ok and passed
@@ -813,9 +917,10 @@ def phase_probe_kernels(card):
             table[name] = {**row, "shape": tag, "other_shapes": []}
         else:
             table[name]["other_shapes"].append({
-                k: row[k] for k in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "max_abs_err")}
-                | {"shape": tag})
+                k: row[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "library_ms", "bound_ms", "bound_by",
+                                    "max_abs_err", "launch")}
+                | {"shape": tag} | traffic)
         del got, want
     torch.cuda.empty_cache()
     return ok, table
@@ -1033,9 +1138,11 @@ def main():
         row["large_f"] = {key: big[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "cap")}
         row["large_f"]["launches"] = f_launches[k]
-    # the micro-benchmarks' kernels: their own launches, no large-F run
+    # the micro-benchmarks' kernels: their own launches, no large-F run;
+    # ptxas's line of the instantiation that ran at each shape
     for k, row in p_table.items():
-        row["ptxas"] = ran(ptxas[k], k)
+        for r in (row, *row["other_shapes"]):
+            r["ptxas"] = ran(ptxas[k], micro_instance(k, r["launch"]))
     emit({"kernels": list(table.values()) + list(p_table.values())})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,7 +26,8 @@ import subprocess
 import threading
 import time
 
-__all__ = ["library", "check", "build_all", "ptxas_info"]
+__all__ = ["library", "check", "build_all", "ptxas_info", "stream",
+           "launch_shape"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
@@ -54,8 +55,14 @@ _SIGNATURES = {
     # the rasterizer micro-benchmarks' kernels (largesteps_torch.benchmarks)
     "ls_onehot_scatter": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
     "ls_probe_tile": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
-    # bytes of shared memory a probe_tile block takes at a cap
-    "ls_probe_tile_smem": ([_I], ctypes.c_longlong),
+    # probe_tile over a range of its work items (kernel_probe.py times the
+    # sums items and the field items alone): (..., B, cap, first, n, stream)
+    "ls_probe_tile_items": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # launch shapes, written to a long long array: probe_tile's {blocks,
+    # threads, shared bytes, blocks an SM holds, work items} at (B, cap);
+    # onehot_scatter's plan at (entries, ch)
+    "ls_probe_tile_grid": ([_I, _I, _P], None),
+    "ls_onehot_scatter_plan": ([ctypes.c_longlong, _I, _P], None),
 }
 _KERNELS = ("raster_fwd", "raster_bwd", "aa_fwd", "aa_bwd", "onehot_scatter",
             "probe_tile")
@@ -171,6 +178,31 @@ def ptxas_info(name: str) -> dict:
             if m:
                 info[entry][k] = int(m.group(1))
     return info
+
+
+def stream(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, by PyTorch's
+    private accessor: ``torch.cuda.current_stream(device).cuda_stream``
+    builds a Stream object, about 10 µs of host time a call against 0.2
+    (``kernel_probe.py``, PERF.md), which a launch of a few microseconds
+    cannot carry."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())
+
+
+_SHAPES = {"probe_tile": "ls_probe_tile_grid",
+           "onehot_scatter": "ls_onehot_scatter_plan"}
+
+
+def launch_shape(name: str, *args) -> list:
+    """The launch shape that kernel ``name``'s library reports for a call's
+    ``args`` (``_SIGNATURES``: ``ls_probe_tile_grid``,
+    ``ls_onehot_scatter_plan``), as a list of ints."""
+    out = (ctypes.c_longlong * 8)()
+    library(name, _SHAPES[name])(*args, out)
+    return list(out)
 
 
 def check(name: str, err: int) -> None:

@@ -15,9 +15,11 @@ matmul); their relative errors; and the binning's stable argsort against
 from __future__ import annotations
 
 import argparse
+import functools
 
 import torch
 
+from .. import _cuda
 from .._device import resolve_device
 from . import device_name, time_ms
 
@@ -51,18 +53,24 @@ def onehot_scatter(ids, m, n_faces: int):
     if m.device.type != "cuda":
         raise ValueError(f"onehot_scatter: unsupported device {m.device}")
     if ids.dtype != torch.int32 or m.dtype != torch.float32 \
-            or not ids.is_contiguous() or not m.is_contiguous():
+            or not ids.is_contiguous() or not m.is_contiguous() \
+            or m.data_ptr() % 16:
         raise ValueError("onehot_scatter: contiguous int32 ids and float32 m "
-                         "on the card")
-    from .. import _cuda
+                         "that starts on 16 bytes, on the card")
     C, P, ch = m.shape
-    out = torch.zeros((n_faces, ch), dtype=torch.float32, device=m.device)
-    err = _cuda.library("onehot_scatter")(
-        ids.data_ptr(), m.data_ptr(), out.data_ptr(), C * P, ch, n_faces,
-        torch.cuda.current_stream(m.device).cuda_stream)
+    # the launcher zeroes the output on the stream
+    out = torch.empty((n_faces, ch), dtype=torch.float32, device=m.device)
+    err = _launcher()(ids.data_ptr(), m.data_ptr(), out.data_ptr(), C * P,
+                      ch, n_faces, _cuda.stream(m.device))
     _cuda.check("onehot_scatter", err)
     LAUNCHES["onehot_scatter"] += 1
     return out
+
+
+@functools.cache
+def _launcher():
+    """onehot_scatter's loaded launcher, looked up once."""
+    return _cuda.library("onehot_scatter")
 
 
 def onehot_scatter_plain(ids, m, n_faces: int):

@@ -15,10 +15,12 @@ the defaults are the JAX probe's one tile at cap 256.
 from __future__ import annotations
 
 import argparse
+import functools
 
 import numpy as np
 import torch
 
+from .. import _cuda
 from .._device import resolve_device
 from . import device_name, time_ms
 
@@ -34,12 +36,12 @@ LAUNCHES = {"probe_tile": 0}
 
 def _check(slot, recT, g0):
     B = slot.shape[0]
-    if tuple(slot.shape) != (B, 32, 128) or tuple(g0.shape) != (B, 32, 128) \
-            or recT.dim() != 3 or tuple(recT.shape[:2]) != (B, 32):
+    if slot.shape != (B, 32, 128) or g0.shape != (B, 32, 128) \
+            or recT.dim() != 3 or recT.shape[:2] != (B, 32):
         raise ValueError(f"probe_tile: slot and g0 (B, 32, 128), recT "
                          f"(B, 32, cap); got {tuple(slot.shape)}, "
                          f"{tuple(recT.shape)}, {tuple(g0.shape)}")
-    if len({t.device for t in (slot, recT, g0)}) != 1:
+    if not slot.device == recT.device == g0.device:
         raise ValueError("probe_tile: tensors on several devices")
 
 
@@ -49,31 +51,43 @@ def probe_tile(slot, recT, g0):
     i] = Σ_{p: slot[b, p] = c} g0[b, p] · (i + 1)`` for i < 18.  slot
     (B, 32, 128), recT (B, 32, cap), g0 (B, 32, 128), float32 → (fields
     (B, 32, 4096), S (B, cap, 18)).  On the card the kernel (a launch
-    counted in ``LAUNCHES``; cap at most 1,162, the shared memory of a
-    block), on the CPU :func:`probe_tile_plain`."""
+    counted in ``LAUNCHES``; cap at most 1,162; tensors that start on 16
+    bytes), on the CPU :func:`probe_tile_plain`."""
     _check(slot, recT, g0)
     if slot.device.type == "cpu":
         return probe_tile_plain(slot, recT, g0)
     if slot.device.type != "cuda":
         raise ValueError(f"probe_tile: unsupported device {slot.device}")
     for name, t in (("slot", slot), ("recT", recT), ("g0", g0)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.data_ptr() % 16:
             raise ValueError(f"probe_tile: {name} must be a contiguous "
-                             f"float32 tensor")
-    from .. import _cuda
+                             f"float32 tensor that starts on 16 bytes")
     B, _, cap = recT.shape
-    if _cuda.library("probe_tile", "ls_probe_tile_smem")(cap) > SMEM_MAX:
+    # the contract's cap limit: a tile's records and sums in one block's
+    # shared memory, as the first design held them
+    if (32 + NS) * cap * 4 > SMEM_MAX:
         raise ValueError(f"probe_tile: cap {cap} takes more shared memory "
                          f"than a block has")
-    fields = torch.empty((B, 32, P), dtype=torch.float32, device=slot.device)
-    S = torch.empty((B, cap, NS), dtype=torch.float32, device=slot.device)
-    err = _cuda.library("probe_tile")(
-        slot.data_ptr(), recT.data_ptr(), g0.data_ptr(), fields.data_ptr(),
-        S.data_ptr(), B, cap,
-        torch.cuda.current_stream(slot.device).cuda_stream)
+    # one allocation for both outputs: each torch.empty costs more host
+    # time than a strided view of one (kernel_probe.py, PERF.md)
+    n = B * 32 * P
+    out = torch.empty(n + B * cap * NS, dtype=torch.float32,
+                      device=slot.device)
+    fields = out.as_strided((B, 32, P), (32 * P, P, 1))
+    S = out.as_strided((B, cap, NS), (cap * NS, NS, 1), n)
+    err = _launcher()(slot.data_ptr(), recT.data_ptr(), g0.data_ptr(),
+                      fields.data_ptr(), S.data_ptr(), B, cap,
+                      _cuda.stream(slot.device))
     _cuda.check("probe_tile", err)
     LAUNCHES["probe_tile"] += 1
     return fields, S
+
+
+@functools.cache
+def _launcher():
+    """probe_tile's loaded launcher, looked up once."""
+    return _cuda.library("probe_tile")
 
 
 def probe_tile_plain(slot, recT, g0):

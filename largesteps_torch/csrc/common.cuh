@@ -1,4 +1,5 @@
-// Shared definitions of the four render kernels (see each .cu file's note).
+// Shared definitions of the four render kernels (see each .cu file's note),
+// and the launch helpers of every kernel.
 //
 // Layouts are the JAX package's: records (C, TY, TX, cap, 32) float32,
 // counts (C, TY, TX) int32, planes (C, H, W) float32 with row 0 at the image
@@ -80,6 +81,39 @@ cudaError_t smem_opt_in(size_t dyn, size_t stat) {
     if (e == cudaSuccess && dev < DEVICES) opted[dev] = dyn;
   }
   return e;
+}
+
+// The SMs of the current device, asked once (132 on the H100 SXM).
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// Blocks of kernel K that one SM holds at `threads` threads and `smem`
+// dynamic shared bytes, after K's opt-in to them; the last answer is kept,
+// as callers repeat their shapes.
+template <auto K>
+int resident(int threads, size_t smem) {
+  static size_t last_smem = ~(size_t)0;
+  static int last_threads = 0, last = 1;
+  if (smem != last_smem || threads != last_threads) {
+    int n = 0;
+    if (smem_opt_in<K>(smem, 0) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, K, threads, smem) !=
+            cudaSuccess || n < 1)
+      n = 1;
+    last_smem = smem;
+    last_threads = threads;
+    last = n;
+  }
+  return last;
 }
 
 // ---------------------------------------------------------------------------

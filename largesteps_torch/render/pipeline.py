@@ -37,7 +37,8 @@ from .kernels import TILE_H, TILE_W, BIG
 
 __all__ = ["triangle_setup", "bin_triangles", "setup_and_bin",
            "setup_from_bins", "bin_triangles_host", "bin_triangles_device",
-           "chain_planes", "build_incidence", "scatter_via_faces",
+           "chain_planes", "build_incidence", "face_ids", "face_sums",
+           "scatter_via_faces",
            "scatter_via_slots", "suggest_cap", "check_bin_overflow",
            "RenderPipeline", "RenderPipelineBig"]
 
@@ -490,6 +491,26 @@ def build_incidence(faces, n_verts):
     return idx, valid
 
 
+def face_ids(bins, n_faces):
+    """The row of :func:`face_sums` that each slot adds into: the slot's face
+    id, or the sentinel ``n_faces`` for an empty slot, offset by camera c
+    to c·(n_faces + 1).  bins (C, ..., cap) → (C, rest) int64."""
+    C = bins.shape[0]
+    ids = torch.where(bins >= 0, bins, n_faces).reshape(C, -1)
+    return ids + (torch.arange(C, device=bins.device) * (n_faces + 1))[:, None]
+
+
+def face_sums(table18, bins, n_faces):
+    """The per-(camera, face) sums of the slot rows, a sentinel row a
+    camera: (C·(n_faces + 1), 18), by one ``index_add_`` over
+    :func:`face_ids` (the segment sum of ``onehot_scatter``)."""
+    C = table18.shape[0]
+    dface = torch.zeros((C * (n_faces + 1), 18), dtype=table18.dtype,
+                        device=table18.device)
+    return dface.index_add_(0, face_ids(bins, n_faces).reshape(-1),
+                            table18.reshape(-1, 18))
+
+
 def scatter_via_faces(table18, bins, incidence, n_faces, n_verts):
     """Slot gradients → vertex gradients through a per-face table.
 
@@ -498,13 +519,8 @@ def scatter_via_faces(table18, bins, incidence, n_faces, n_verts):
     the table's device.  Returns (dv_clip (C, V, 4), d_attrs (V, 3)).
     """
     C = table18.shape[0]
-    F = n_faces
-    dev = table18.device
-    ids = torch.where(bins >= 0, bins, F).reshape(C, -1)
-    ids = ids + (torch.arange(C, device=dev) * (F + 1))[:, None]
-    dface = torch.zeros((C * (F + 1), 18), dtype=table18.dtype, device=dev)
-    dface.index_add_(0, ids.reshape(-1), table18.reshape(-1, 18))
-    return _faces_to_vertices(dface.reshape(C, F + 1, 18), incidence)
+    dface = face_sums(table18, bins, n_faces)
+    return _faces_to_vertices(dface.reshape(C, n_faces + 1, 18), incidence)
 
 
 def scatter_via_slots(table18, fslots, incidence, n_verts):

@@ -38,10 +38,16 @@ cotangents from a numpy seed.
   the CPU.
 * The micro-benchmarks' kernels: ``onehot_scatter`` with P not a multiple
   of 4,096, ids out of range (−1, n_faces, far past it) and 18 and 32
-  channels; ``probe_tile`` at cap 256 and 768, 1 and 208 tiles, on random
-  slots, on slots all −1 and on slots all equal (every pixel of a tile on
-  one slot), and on slot values that name no column (fractions, −0.0,
-  cap itself).
+  channels; at 1, 3, 18, 32 and 33 channels (scalar, v2 and v4
+  reductions) into a small output and a large one, rows of more than 64
+  channels cut into windows, and ``scatter_via_faces``' layout (ascending
+  live faces, then the camera's sentinel row); ``probe_tile`` at cap 256 and 768, 1 and 208 tiles, on
+  random slots, on slots all −1 and on slots all equal (every pixel of a
+  tile on one slot), and on slot values that name no column (fractions,
+  −0.0, cap itself); at cap 768 on 1, 133 and 208 tiles, random slots
+  and runs, through the wrapper and as separate launches of its sums and
+  field items; both wrappers refusing inputs that do not start on 16
+  bytes.
 * The dense renderer on the card against the same render on the CPU.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
@@ -545,6 +551,96 @@ def test_gpu_onehot_scatter(ch):
     assert np.abs(got.cpu().numpy() - ref).max() < 1e-5 * scale
 
 
+def _scatter_check(ids, m, F):
+    """onehot_scatter on the card against its plain version and an
+    ``np.add.at`` oracle, both at 1e-5 × max|oracle|; one launch."""
+    from largesteps_torch.benchmarks import micro_scatter as ms
+    dev = _card()
+    ids_t, m_t = torch.as_tensor(ids, device=dev), torch.as_tensor(m, device=dev)
+    n0 = ms.LAUNCHES["onehot_scatter"]
+    got = ms.onehot_scatter(ids_t, m_t, F)
+    torch.cuda.synchronize()
+    assert ms.LAUNCHES["onehot_scatter"] == n0 + 1
+    want = ms.onehot_scatter_plain(ids_t, m_t, F)
+    ok = (ids >= 0) & (ids < F)
+    ref = np.zeros((F, m.shape[-1]))
+    np.add.at(ref, ids[ok], m[ok].astype(np.float64))
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    assert _max_abs(got, want) <= 1e-5 * scale
+    assert np.abs(got.cpu().numpy() - ref).max() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [1, 3, 18, 32, 33])
+@pytest.mark.parametrize("F", [300, 200_000])
+def test_gpu_onehot_scatter_shapes(F, ch):
+    """An output of 300 faces, which a block's shared memory could hold, and
+    one of 200,000, far past it (both reduce into L2), at channel counts of
+    each vector width (1, 3, 33 scalar; 18 two; 32 four); 4 × 50,001
+    entries, ids from −1 to past n_faces, runs of equal ids among them (a
+    run of 300 on one face, a run of 100 out of range)."""
+    rng = np.random.default_rng(ch)
+    C, P = 4, 50_001
+    ids = rng.integers(-1, F + 2, (C, P)).astype(np.int32)
+    ids[1, 100:400] = 7
+    ids[2, 1000:1100] = -1
+    m = rng.normal(size=(C, P, ch)).astype(np.float32)
+    _scatter_check(ids, m, F)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ch", [100, 130])
+def test_gpu_onehot_scatter_windows(ch):
+    """Rows of more than 64 channels are cut into windows, one grid row
+    each: 100 channels (v4) into 64 and 36, 130 (v2) into 64, 64 and 2."""
+    from largesteps_torch import _cuda
+    _card()
+    rng = np.random.default_rng(ch)
+    C, P, F = 2, 20_000, 1_000
+    plan = _cuda.launch_shape("onehot_scatter", C * P, ch)
+    assert plan[1] == 64 and plan[3] == -(-ch // 64)
+    ids = rng.integers(0, F, (C, P)).astype(np.int32)
+    m = rng.normal(size=(C, P, ch)).astype(np.float32)
+    _scatter_check(ids, m, F)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,F", [(2, 20), (13, 5_121)])
+def test_gpu_onehot_scatter_sentinel_layout(C, F):
+    """``scatter_via_faces``'s layout: 16 tiles of 768 slots a camera, each
+    tile's live faces ascending and the rest on the camera's sentinel row
+    F, ids offset by c · (F + 1); 18 channels; (13, 5,121) is the main
+    path's shape, (2, 20) nearly all sentinels."""
+    from largesteps_torch.render.pipeline import face_ids
+    rng = np.random.default_rng(C)
+    T, cap = 16, 768
+    bins = np.full((C, T, cap), -1, np.int64)
+    for c in range(C):
+        for t in range(T):
+            n = int(rng.integers(0, min(cap, F) + 1))
+            bins[c, t, :n] = np.sort(rng.choice(F, n, replace=False))
+    ids = face_ids(torch.as_tensor(bins), F).numpy().astype(np.int32)
+    ids = ids.reshape(1, -1)
+    m = rng.normal(size=(1, C * T * cap, 18)).astype(np.float32)
+    _scatter_check(ids, m, C * (F + 1))
+
+
+@pytest.mark.gpu
+def test_gpu_micro_kernels_reject_unaligned():
+    """Both wrappers read 16 bytes at a time: a contiguous view that does
+    not start on 16 bytes raises."""
+    from largesteps_torch.benchmarks import micro_scatter as ms
+    from largesteps_torch.benchmarks import probe_mosaic as pm
+    dev = _card()
+    buf = torch.zeros(1 + 32 * 128, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        ms.onehot_scatter(torch.zeros((1, 128), dtype=torch.int32,
+                                      device=dev), buf[1:].view(1, 128, 32), 4)
+    z = lambda *s: torch.zeros(s, device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        pm.probe_tile(buf[1:].view(1, 32, 128), z(1, 32, 256), z(1, 32, 128))
+
+
 def _probe_slots(kind, B, cap, rng):
     if kind == "random":
         return rng.integers(-1, cap, (B, 32, 128)).astype(np.float32)
@@ -588,6 +684,62 @@ def test_gpu_probe_tile(B, cap, kind):
         fo, So = pm.oracle(np.nan_to_num(slot, nan=-1.0), recT, g0)
         assert np.array_equal(fields.cpu().numpy(), fo)
         assert np.abs(S.cpu().numpy() - So).max() <= 1e-5 * scale
+
+
+def _run_slots(B, rng):
+    """Slot planes as the rasterizer leaves them: runs of neighbouring
+    pixels on one slot (lengths 1-200 in pixel order), some −1."""
+    s = np.empty((B, 32 * 128), np.float32)
+    for b in range(B):
+        p = 0
+        while p < s.shape[1]:
+            n = int(rng.integers(1, 201))
+            s[b, p:p + n] = rng.integers(-1, 768)
+            p += n
+    return s.reshape(B, 32, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 133, 208])
+@pytest.mark.parametrize("kind", ["random", "runs"])
+@pytest.mark.parametrize("launch", ["wrapper", "items"])
+def test_gpu_probe_tile_grid(B, kind, launch):
+    """The persistent grid at cap 768 over 1 tile, 133 (a wave of tiles and
+    one more) and 208 (the main path's), on random slots and on runs:
+    through the wrapper, and as two launches of its work items (the B sums
+    items, then the 4 B field items, as ``kernel_probe.py`` times them),
+    each against the plain version (fields exact, S 1e-5 × max)."""
+    from largesteps_torch import _cuda
+    from largesteps_torch.benchmarks import probe_mosaic as pm
+    dev = _card()
+    cap = 768
+    rng = np.random.default_rng(B)
+    slot = _probe_slots("random", B, cap, rng) if kind == "random" \
+        else _run_slots(B, rng)
+    recT = rng.normal(size=(B, 32, cap)).astype(np.float32)
+    g0 = rng.normal(size=(B, 32, 128)).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (slot, recT, g0)]
+    if launch == "wrapper":
+        fields, S = pm.probe_tile(*args)
+    else:
+        fields = torch.empty((B, 32, 4096), device=dev)
+        S = torch.empty((B, cap, 18), device=dev)
+        items = _cuda.library("probe_tile", "ls_probe_tile_items")
+        ptrs = [a.data_ptr() for a in (*args, fields, S)]
+        stream = torch.cuda.current_stream().cuda_stream
+        for first, n in ((0, B), (B, 4 * B)):
+            _cuda.check("probe_tile", items(*ptrs, B, cap, first, n, stream))
+    torch.cuda.synchronize()
+    blocks, threads, smem, per_sm, n_items = _cuda.launch_shape(
+        "probe_tile", B, cap)[:5]
+    # two buffers of 8 record rows; counts, starts, ranks and buckets
+    assert (threads, smem, n_items) == (256, (16 * cap + 2 * cap + 8192) * 4,
+                                        5 * B)
+    assert blocks == min(5 * B, per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    fw, Sw = pm.probe_tile_plain(*args)
+    assert torch.equal(fields, fw)
+    assert _max_abs(S, Sw) <= 1e-5 * float(Sw.abs().max())
 
 
 @pytest.mark.gpu

@@ -179,3 +179,54 @@ def test_micro_benchmark_kernels_launch_only_on_the_card():
         probe_mosaic.probe_tile(torch.zeros((1, 32, 64)),
                                 torch.ones((1, 32, 4)),
                                 torch.ones((1, 32, 128)))
+
+
+def _slot_table(C, TY, TX, cap, F, seed):
+    """bins (C, TY, TX, cap) as the binning lays them out (each tile's live
+    faces in ascending order, then −1) and a normal (..., cap, 18) table."""
+    rng = np.random.default_rng(seed)
+    bins = np.full((C, TY, TX, cap), -1, np.int64)
+    for idx in np.ndindex(C, TY, TX):
+        n = int(rng.integers(0, cap + 1))
+        bins[idx][:n] = np.sort(rng.choice(F, n, replace=False))
+    table = rng.normal(size=(C, TY, TX, cap, 18)).astype(np.float32)
+    return bins, table
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_onehot_scatter_plain_on_scatter_via_faces_layout(C):
+    """The segment sum of the main path's backward: ``onehot_scatter`` over
+    ``face_ids`` (each slot's face, empty slots on a sentinel row a camera)
+    into C·(F + 1) rows is ``face_sums``, the table that the port's
+    ``scatter_via_faces`` builds, and through the face→vertex gather gives
+    both the port's and JAX's ``_scatter_via_faces``
+    (``pallas_core.py:1260``)."""
+    from largesteps_torch.ops.shapes import icosphere
+    from largesteps_torch.render import pipeline as tp
+    from largesteps_tpu.render import pallas_core as pc
+    v, f = icosphere(2)
+    F, V = f.shape[0], v.shape[0]
+    bins, table = _slot_table(C, 2, 2, 96, F, C)
+    bins_t, table_t = torch.as_tensor(bins), torch.as_tensor(table)
+    ids = tp.face_ids(bins_t, F).to(torch.int32).reshape(1, -1)
+    got = micro_scatter.onehot_scatter(ids, table_t.reshape(1, -1, 18),
+                                       C * (F + 1))
+    want = tp.face_sums(table_t, bins_t, F)
+    scale = float(want.abs().max())
+    assert got.shape == want.shape == (C * (F + 1), 18)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    # the sentinel rows hold the empty slots' sums
+    empty = table[bins < 0].astype(np.float64).reshape(-1, 18)
+    assert np.abs(got.reshape(C, F + 1, 18)[:, F].sum(0).numpy()
+                  - empty.sum(0)).max() <= 1e-4 * scale
+    inc = tp.build_incidence(f, V)
+    inc_t = (torch.as_tensor(inc[0]), torch.as_tensor(
+        inc[1].astype(np.float32)))
+    dv, da = tp._faces_to_vertices(got.reshape(C, F + 1, 18), inc_t)
+    dv_p, da_p = tp.scatter_via_faces(table_t, bins_t, inc_t, F, V)
+    dv_j, da_j = pc._scatter_via_faces(jnp.asarray(table), jnp.asarray(bins),
+                                       pc.build_incidence(f, V), F, V)
+    for a, b, c in ((dv, dv_p, dv_j), (da, da_p, da_j)):
+        s = float(np.abs(np.asarray(c)).max())
+        assert float((a - b).abs().max()) <= 1e-5 * s
+        assert np.abs(a.numpy() - np.asarray(c)).max() <= 1e-5 * s
