@@ -23,10 +23,17 @@ kernel's time by CUDA events and its device time by ``torch.profiler``;
 the launch shape of each); the dense renderer against the tile
 kernels at 13 × 256² (``dense_render``); and 20 steps of the driver on the
 bench_step scene at 13 × 250², which only the dense renderer draws
-(``dense_path``).  Prints one JSON line per phase, then the kernel table,
-the card's name and power limit, and as the last line ``{"ok": true,
-"device": {...}}``.  Exits non-zero, without the ``ok`` line, if there is no CUDA
-device or any phase fails.  Imports neither jax nor largesteps_tpu.
+(``dense_path``).  Last, the fit quality on the card (``fit_quality``: the
+comparison figure's three suzanne legs at full length through
+``largesteps_torch.figures.common.run``, their symmetric Hausdorff distances
+held to the JAX package's order, ours < bilaplacian < Laplacian
+regularization) and the port's benchmark (``bench``: the functions of
+``largesteps_torch.benchmarks.bench``, the nefertiti line at 10 steps), the
+tile kernels' launches counted around each.  Prints one JSON line per
+phase, then the kernel table, the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without the
+``ok`` line, if there is no CUDA device or any phase fails.  Imports
+neither jax nor largesteps_tpu.
 """
 import json
 import os
@@ -74,6 +81,12 @@ PROBE_CAP = 256          # the JAX probe's tile (benchmarks/probe_mosaic.py)
 # nefertiti's slot table of benchmarks/micro_scatter_163k.py:28-31, one
 # camera: 16 · 52,992 slots into 327,680 faces and a sentinel, 18 columns
 NEFERTITI_SCATTER = (1, 16 * 52_992, 327_681, 18)
+# the JAX package's symmetric Hausdorff distances of the comparison's
+# suzanne legs (figures/output/comparison/suzanne_*_metrics.csv), and the
+# most the port's ours leg may reach: JAX's + 25 %
+JAX_SUZANNE = {"ours": 0.1400882866213893, "bilapreg": 0.5068336390561687,
+               "lapreg": 0.6095732026042789}
+FIT_OURS_MAX = 1.25 * JAX_SUZANNE["ours"]
 
 
 def emit(obj):
@@ -364,9 +377,11 @@ def large_f_inputs():
 
 def check_kernels(m, card, phase, reps, plain_reps):
     """Each kernel against its plain version on the inputs ``m``: its
-    time, its plain version's (the mean of ``plain_reps`` calls, or with 0
-    the one call compared), its bound by this data's work, and the errors;
-    returns (passed, {name: row of the kernels line})."""
+    time (the wrapper's call by CUDA events, and the kernel's device time
+    by ``torch.profiler`` over ``reps`` calls), its plain version's (the
+    mean of ``plain_reps`` calls, or with 0 the one call compared), its
+    bound by this data's work, and the errors; returns (passed, {name: row
+    of the kernels line})."""
     from largesteps_torch.render import kernels as K
     occ, cap, res, rfb, rbb, counts = (m[k] for k in ("occ", "cap", "res",
                                                       "rfb", "rbb", "counts"))
@@ -432,6 +447,7 @@ def check_kernels(m, card, phase, reps, plain_reps):
         passed = passed and caught
         del got, want
         ms = time_ms(kern, reps)
+        dev_ms = device_ms(kern, reps)
         plain_ms = time_ms(plain, plain_reps, warm=1) if plain_reps \
             else a.elapsed_time(b)
         t_bytes = nb_ / PEAK_BYTES * 1e3
@@ -443,12 +459,12 @@ def check_kernels(m, card, phase, reps, plain_reps):
             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": None, "device_ms": dev_ms}
         emit({"phase": phase, "name": name, "passed": passed,
               "max_abs_err": errs, "max_rel_err": [
                   e / s if s else 0.0 for e, s in zip(errs, scales)],
               "tolerance": tol, "planted_errors_caught": caught,
-              "ms": ms, "plain_ms": plain_ms,
+              "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
               "bytes": nb_, "flops": ops, "bytes_ms": t_bytes,
               "ops_ms": t_ops, "work": w, "cap": cap, "occupancy": occ,
               "live_slots_max": int(live_n.max()),
@@ -733,7 +749,8 @@ def probe_cases(kinds=("onehot_scatter", "traffic", "probe_tile")):
     if "traffic" in kinds:
         from largesteps_torch.render.pipeline import (_backward_kernels,
                                                       face_ids, face_sums)
-        pipe = SimpleNamespace(resolution=m["res"], shading=True, boost=3.0)
+        pipe = SimpleNamespace(resolution=m["res"], shading=True, boost=3.0,
+                               ablate="")
         cov = (m["fid"] > 0)[..., None]
         table18, _ = _backward_kernels(pipe, m["rbb"], m["counts"],
                                        m["slot"], m["fid"], m["z"],
@@ -1089,6 +1106,83 @@ def phase_dense_path(card):
     return passed
 
 
+def _zero_launches():
+    from largesteps_torch.render import kernels as K
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    return K.LAUNCHES
+
+
+def phase_fit_quality(card):
+    """The comparison figure's three suzanne legs at full length through
+    ``largesteps_torch.figures.common.run`` on the card (ours: 1,080 steps
+    of AdamUniform at 2e-3; lapreg and bilapreg: 1,130 steps of Adam at
+    1e-2 on the coordinates, weights 2.8 and 3.8; all boost 3, l1, α =
+    0.95): each leg's symmetric Hausdorff distance to the target, it/s and
+    first step.  Passes when all three are finite, ours < bilapreg <
+    lapreg (the JAX package's order: 0.140 < 0.507 < 0.610,
+    ``figures/output/comparison``) and ours is within 25 % of JAX's 0.140."""
+    from largesteps_torch.figures import common, comparison
+    launches = _zero_launches()
+    legs = {}
+    for name, params in comparison.legs("suzanne"):
+        res, d = common.run(name, "suzanne", params, "comparison",
+                            device="cuda")
+        prof = res["prof"]
+        first = prof["first_step_s"]
+        legs[name.split("_", 1)[1]] = {
+            "hausdorff": d, "steps": res["iters"],
+            "optimizer": params["optimizer"], "smooth": params["smooth"],
+            "it_per_s": (res["iters"] - 1) / (res["wall_time"] - first),
+            "it_per_s_with_first": res["iters"] / res["wall_time"],
+            "first_step_s": first, "setup_s": prof["setup_s"],
+            "loss_first": float(res["losses"][0, 0]),
+            "loss_last": float(res["losses"][-1, 0])}
+    launches = dict(launches)
+    h = {k: leg["hausdorff"] for k, leg in legs.items()}
+    passed = (all(np.isfinite(x) for x in h.values())
+              and h["ours"] < h["bilapreg"] < h["lapreg"]
+              and h["ours"] <= FIT_OURS_MAX
+              and all(n >= 1 for n in launches.values()))
+    emit({"phase": "fit_quality", "passed": passed, "legs": legs,
+          "jax_hausdorff": JAX_SUZANNE, "ours_max": FIT_OURS_MAX,
+          "launches": launches, "output_dir": common.OUTPUT_DIR,
+          "card": card})
+    return passed, launches
+
+
+def phase_bench(card):
+    """``largesteps_torch.benchmarks.bench``'s functions as its ``main``
+    runs them, the nefertiti line at 10 steps: their JSON lines, each
+    printed, with the launch counts of the tile kernels around them.
+    Passes when every metric is there, finite, and ``opt_iters_per_s``
+    comes last."""
+    from largesteps_torch.benchmarks import bench
+    launches = _zero_launches()
+    lines = []
+    for fn in (bench.bench_solve, bench.bench_raster, bench.bench_ablate,
+               lambda: bench.bench_step_nefertiti(steps=10),
+               lambda: [bench.bench_step()]):
+        for line in fn():
+            emit({"phase": "bench", **line})
+            lines.append(line)
+    launches = dict(launches)
+    names = [line["metric"] for line in lines]
+    want = [*(f"raster_{k}_mpix_per_s" for k in ("fwd", "fwdbwd")),
+            *(f"render_fwdbwd_ms_ablate_{k}" for k in
+              ("none", "aabwd", "rbwd", "scatter")),
+            "opt_iters_per_s_163842v_sustained", "nefertiti_first_step_s",
+            "nefertiti_rebin_ms", "nefertiti_rebin_n", "opt_iters_per_s"]
+    solves = [n for n in names if n.startswith("from_differential_ms_")]
+    passed = (all(n in names for n in want) and len(solves) == 3
+              and names[-1] == "opt_iters_per_s"
+              and all(np.isfinite(line["value"]) for line in lines)
+              and all(n >= 1 for n in launches.values()))
+    emit({"phase": "bench_summary", "passed": passed, "metrics": names,
+          "launches": launches, "card": card})
+    return passed, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1104,7 +1198,9 @@ def main():
                       ("dense_path", phase_dense_path),
                       ("large_f_kernels", phase_large_f_kernels),
                       ("large_f_pipes", phase_large_f_pipes),
-                      ("large_f", phase_large_f)):
+                      ("large_f", phase_large_f),
+                      ("fit_quality", phase_fit_quality),
+                      ("bench", phase_bench)):
         t0 = time.perf_counter()
         try:
             results[phase] = fn(card)
@@ -1118,6 +1214,8 @@ def main():
     fk_ok, f_table = results["large_f_kernels"] or (False, {})
     f_ok, f_launches, f_cap = results["large_f"] or (False, {}, None)
     p_ok, p_table = results["probe_kernels"] or (False, {})
+    q_ok, q_launches = results["fit_quality"] or (False, {})
+    b_ok, b_launches = results["bench"] or (False, {})
     # the kernels were held at the run's shapes: its cap is theirs
     fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
     failed = [p for p, ok in (("kernels", k_ok),
@@ -1128,7 +1226,9 @@ def main():
                               ("dense_path", results["dense_path"]),
                               ("large_f_kernels", fk_ok),
                               ("large_f_pipes", results["large_f_pipes"]),
-                              ("large_f", f_ok)) if not ok]
+                              ("large_f", f_ok),
+                              ("fit_quality", q_ok),
+                              ("bench", b_ok)) if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
@@ -1136,8 +1236,11 @@ def main():
         row["launches"] = launches[k]
         big = f_table[k]
         row["large_f"] = {key: big[key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "cap")}
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "cap")}
         row["large_f"]["launches"] = f_launches[k]
+        row["fit_quality_launches"] = q_launches[k]
+        row["bench_launches"] = b_launches[k]
     # the micro-benchmarks' kernels: their own launches, no large-F run;
     # ptxas's line of the instantiation that ran at each shape
     for k, row in p_table.items():

@@ -57,7 +57,7 @@ class CholeskySolver:
         except BandedUnsuitable as e:
             raise NotImplementedError(
                 f"{e}: such meshes need the block-AMG tier, still to port "
-                f"(ROADMAP.md Queue 1, item 8)") from e
+                f"(ROADMAP.md Queue 1, item 3)") from e
 
     @property
     def tier(self) -> str:

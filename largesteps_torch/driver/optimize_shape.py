@@ -18,11 +18,14 @@ the large-F path: bins computed on the host at epoch build with a
 displacement, which the host reads only once the step has run).  At most
 ``max_inflight`` steps are queued on the device.
 
+``scene`` is a scene dict or the path of a scene XML file.  The optimizer
+is AdamUniform, plain Adam or a callable (see :func:`_make_optimizer`).
 Remeshing and sharding are later slices (ROADMAP.md Queue 1) and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from collections import deque
@@ -34,10 +37,11 @@ import torch
 
 from .._device import resolve_device
 from ..core.geometry import compute_matrix, laplacian_uniform
-from ..core.optimize import AdamUniform
+from ..core.optimize import Adam, AdamUniform
 from ..core.parameterize import get_solver, to_differential
 from ..core.solvers import solve
 from ..core.sparse import coo_matvec
+from ..io.xml_scene import load_scene
 from ..ops.mesh import remove_duplicates
 from ..ops.normals import compute_face_normals, compute_vertex_normals
 from ..render.camera import project
@@ -166,15 +170,25 @@ def _check_supported(p):
     if (isinstance(remesh, (list, tuple)) and len(remesh)) or \
             (isinstance(remesh, int) and remesh >= 0):
         raise NotImplementedError("remeshing is a later slice "
-                                  "(ROADMAP.md Queue 1, item 7)")
+                                  "(ROADMAP.md Queue 1, item 2)")
     if p["sharding"]:
         raise NotImplementedError("sharding is a later slice "
-                                  "(ROADMAP.md Queue 1, item 9)")
-    if p["optimizer"] == "Adam":
-        raise NotImplementedError("plain Adam is still to port "
-                                  "(ROADMAP.md Queue 1, item 1)")
-    if p["optimizer"] != "AdamUniform":
-        raise ValueError(f"unknown optimizer {p['optimizer']!r}")
+                                  "(ROADMAP.md Queue 1, item 5)")
+
+
+def _make_optimizer(name_or_fn, params, lr):
+    """The optimizer over ``params`` at step size ``lr``: ``"AdamUniform"``,
+    ``"Adam"``, or a callable ``(params, lr) → torch.optim.Optimizer``.
+    (The JAX driver's callable takes ``lr`` alone and returns an optax
+    transformation; a torch optimizer needs its parameters when it is
+    built.)"""
+    if callable(name_or_fn):
+        return name_or_fn(params, lr)
+    if name_or_fn == "AdamUniform":
+        return AdamUniform(params, lr=lr)
+    if name_or_fn == "Adam":
+        return Adam(params, lr=lr)
+    raise ValueError(f"unknown optimizer {name_or_fn!r}")
 
 
 def _sxy(renderer, v_ndc):
@@ -527,7 +541,8 @@ def _prepare(scene, p, dev) -> _Run:
         theta = {"u": u0.detach().clone().requires_grad_(True),
                  "tr": torch.zeros((1, 3), dtype=torch.float32, device=dev,
                                    requires_grad=True)}
-    optimizer = AdamUniform([theta["tr"], theta["u"]], lr=step_size)
+    optimizer = _make_optimizer(p["optimizer"], [theta["tr"], theta["u"]],
+                                step_size)
     if resume is not None:
         load_moments(optimizer)
         if st.use_host_bins:
@@ -546,15 +561,18 @@ def _prepare(scene, p, dev) -> _Run:
 def optimize_shape(scene, params=None, device=None):
     """Run the shape optimization on ``device`` (CUDA unless the caller
     asks for the CPU).  ``scene`` is a scene-params dict
-    (:func:`largesteps_torch.io.synth.make_scene`).  Returns the JAX
-    driver's result dict: losses (steps, 2) = (image loss, bilaplacian
-    magnitude), v_final, f_final, tr, iters, wall_time, prof and the
-    reference images and mesh."""
+    (:func:`largesteps_torch.io.synth.make_scene`) or the path of a scene
+    XML file (:func:`largesteps_torch.io.xml_scene.load_scene`).  Returns
+    the JAX driver's result dict: losses (steps, 2) = (image loss,
+    bilaplacian magnitude), v_final, f_final, tr, iters, wall_time, prof
+    and the reference images and mesh."""
     dev = resolve_device(device)
     p = default_params()
     if params:
         p.update(params)
     t_setup0 = time.perf_counter()
+    if isinstance(scene, (str, os.PathLike)):
+        scene = load_scene(os.fspath(scene))
     run = _prepare(scene, p, dev)
     st, theta, optimizer, step = run.st, run.theta, run.optimizer, run.step
     renderer = run.renderer

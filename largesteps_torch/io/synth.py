@@ -1,18 +1,23 @@
 """Synthetic scene construction (host numpy).
 
 Port of ``largesteps_tpu/io/synth.py`` (``make_envmap``,
-``turntable_views``, ``make_scene``): turntable cameras around the origin, a
-procedural HDR envmap, and procedural source and target meshes.  Writing a
-scene to disk (XML, PLY, HDR) is queued with the io slice in ROADMAP.md.
+``turntable_views``, ``make_scene``, ``save_scene``): turntable cameras
+around the origin, a procedural HDR envmap, and procedural source and
+target meshes; a scene can be written to disk (XML, PLY, HDR) for
+:func:`largesteps_torch.io.xml_scene.load_scene`.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from ..ops import shapes
 from ..render.camera import rotation_matrix, translation_matrix
+from .hdr import write_hdr
+from .ply import write_ply
 
-__all__ = ["make_envmap", "turntable_views", "make_scene"]
+__all__ = ["make_envmap", "turntable_views", "make_scene", "save_scene"]
 
 
 def make_envmap(h: int = 64, w: int = 128, seed: int = 0) -> np.ndarray:
@@ -80,3 +85,52 @@ def make_scene(source=("icosphere", 3), target=("gourd", 4),
         "mesh-source": build(source),
         "mesh-target": build(target),
     }
+
+
+def save_scene(params, directory, name="scene"):
+    """Persist a scene dict as XML + PLY + HDR, loadable by load_scene."""
+    os.makedirs(directory, exist_ok=True)
+    write_ply(os.path.join(directory, "source.ply"),
+              params["mesh-source"]["vertices"], params["mesh-source"]["faces"])
+    write_ply(os.path.join(directory, "target.ply"),
+              params["mesh-target"]["vertices"], params["mesh-target"]["faces"])
+    write_hdr(os.path.join(directory, "envmap.hdr"), params["envmap"][..., :3])
+
+    sensors = []
+    n = len(params["view_mats"])
+    # Round-trip caveat: we re-emit the turntable parameters rather than the
+    # raw matrices; only scenes built by make_scene are exactly reproduced.
+    for k in range(n):
+        angle = 360.0 * k / max(n, 1)
+        sensors.append(f"""
+  <sensor type="perspective">
+    <float name="fov" value="{params['fov']}"/>
+    <float name="near_clip" value="{params['near_clip']}"/>
+    <float name="far_clip" value="{params['far_clip']}"/>
+    <transform name="to_world">
+      <translate value="0 0 -3.5"/>
+      <rotate x="1" angle="-15.0"/>
+      <rotate y="1" angle="{angle}"/>
+    </transform>
+  </sensor>""")
+
+    xml = f"""<scene version="2.0.0">
+  <default name="resx" value="{params['res_x']}"/>
+  <default name="resy" value="{params['res_y']}"/>
+{''.join(sensors)}
+  <emitter type="envmap">
+    <string name="filename" value="envmap.hdr"/>
+    <float name="scale" value="{params['envmap_scale']}"/>
+  </emitter>
+  <shape type="ply" id="mesh-source">
+    <string name="filename" value="source.ply"/>
+  </shape>
+  <shape type="ply" id="mesh-target">
+    <string name="filename" value="target.ply"/>
+  </shape>
+</scene>
+"""
+    path = os.path.join(directory, f"{name}.xml")
+    with open(path, "w") as fh:
+        fh.write(xml)
+    return path

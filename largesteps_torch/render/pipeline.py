@@ -40,7 +40,10 @@ __all__ = ["triangle_setup", "bin_triangles", "setup_and_bin",
            "chain_planes", "build_incidence", "face_ids", "face_sums",
            "scatter_via_faces",
            "scatter_via_slots", "suggest_cap", "check_bin_overflow",
-           "RenderPipeline", "RenderPipelineBig"]
+           "RenderPipeline", "RenderPipelineBig", "ABLATE"]
+
+# the backward stages a pipe can be built without (RenderPipeline's ablate)
+ABLATE = ("aabwd", "rbwd", "scatter")
 
 
 def triangle_setup(v_clip, faces, attrs, opp, height, width, need_fwd=True):
@@ -590,12 +593,23 @@ class RenderPipeline:
     and with ``slots_k=K`` also ``fslots (C, F+1, K)``, through which the
     backward gathers each face's slot sums (:func:`scatter_via_slots`).
     The bins take no gradient.
+
+    ``ablate`` zeroes backward stages, to time each one's share
+    (``benchmarks/bench.py``; JAX's ``make_render_pipeline(ablate=)``):
+    ``"aabwd"`` skips aa_bwd (its per-slot sums are zero and the cotangent
+    passes through as d_comp), ``"rbwd"`` skips raster_bwd (zero sums),
+    ``"scatter"`` still chains the sums but returns zero v and attribute
+    gradients.  It is an argument of the constructor only: the training
+    path always builds with ``""``.
     """
 
     def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
-                 cap=768, prebinned=False, slots_k=None):
+                 cap=768, prebinned=False, slots_k=None, ablate=""):
         if slots_k is not None and not prebinned:
             raise ValueError("slots_k needs prebinned bins")
+        if ablate and ablate not in ABLATE:
+            raise ValueError(f"ablate {ablate!r}: '' or one of {ABLATE}")
+        self.ablate = ablate
         self.faces = np.ascontiguousarray(np.asarray(faces), dtype=np.int64)
         self.opp = np.ascontiguousarray(np.asarray(opp), dtype=np.int64)
         self.resolution = tuple(resolution)
@@ -660,14 +674,34 @@ def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g):
     """aa_bwd, raster_bwd and the chain to clip space: (table18 (C, TY,
     TX, cap, 18), d_comp (C, H, W, D))."""
     res = pipe.resolution
-    d_comp, dslot_aa = kernels.aa_bwd(rbb, counts, fid, z, comp,
-                                      g.contiguous(), res)
+    if pipe.ablate == "aabwd":
+        d_comp, dslot_aa = g, rbb.new_zeros((*rbb.shape[:-1], 8))
+    else:
+        d_comp, dslot_aa = kernels.aa_bwd(rbb, counts, fid, z, comp,
+                                          g.contiguous(), res)
     d_color = torch.where(cov, d_comp[..., :3], 0.0) if pipe.shading \
         else d_comp
-    zeros = torch.zeros_like(fid)
-    dslot = kernels.raster_bwd(rbb, counts, slot, d_color.contiguous(),
-                               zeros, zeros, res)
+    if pipe.ablate == "rbwd":
+        dslot = torch.zeros_like(rbb)
+    else:
+        zeros = torch.zeros_like(fid)
+        dslot = kernels.raster_bwd(rbb, counts, slot, d_color.contiguous(),
+                                   zeros, zeros, res)
     return chain_planes(dslot, dslot_aa, pipe.boost, rbb), d_comp
+
+
+def _scatter(pipe, table18, bins, fslots, incidence, n_verts):
+    """The chained per-slot table → (dv_clip (C, V, 4), d_attrs (V, 3)):
+    through the face→slot inverse where the pipe takes one, else through
+    the per-face table; zeros where the scatter is ablated."""
+    if pipe.ablate == "scatter":
+        C = table18.shape[0]
+        return (table18.new_zeros((C, n_verts, 4)),
+                table18.new_zeros((n_verts, 3)))
+    if fslots:
+        return scatter_via_slots(table18, fslots[0], incidence, n_verts)
+    return scatter_via_faces(table18, bins, incidence, pipe.faces.shape[0],
+                             n_verts)
 
 
 def _tiled(pipe, n_cams, *tensors):
@@ -726,13 +760,8 @@ class _PipelineFn(torch.autograd.Function):
         table18, d_comp = _backward_kernels(pipe, rbb, counts, slot, fid, z,
                                             comp, cov, g)
         _, _, incidence = pipe.device_tables(rbb.device, ctx.n_verts)
-        if fslots:
-            dv_clip, d_attrs = scatter_via_slots(table18, fslots[0],
-                                                 incidence, ctx.n_verts)
-        else:
-            dv_clip, d_attrs = scatter_via_faces(table18, bins, incidence,
-                                                 pipe.faces.shape[0],
-                                                 ctx.n_verts)
+        dv_clip, d_attrs = _scatter(pipe, table18, bins, fslots, incidence,
+                                    ctx.n_verts)
         d_bg = None
         if ctx.bg_shape is not None and ctx.needs_input_grad[3]:
             d_bg = _d_bg(d_comp, cov, ctx.bg_shape)
@@ -749,10 +778,10 @@ class RenderPipelineBig(RenderPipeline):
     keeping them, and chains and scatters per camera."""
 
     def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
-                 cap=8192, slots_k=None):
+                 cap=8192, slots_k=None, ablate=""):
         super().__init__(faces, opp, resolution, shading=shading,
                          boost=boost, cap=cap, prebinned=True,
-                         slots_k=slots_k)
+                         slots_k=slots_k, ablate=ablate)
 
     def __call__(self, v_clip, attrs, bg=None, *binned):
         self.check_bins(v_clip.shape[0], binned)
@@ -809,13 +838,9 @@ class _BigFn(torch.autograd.Function):
             table18, d_comp[one] = _backward_kernels(
                 pipe, rbb, _counts3(pipe, counts[one]), slot[one], fid[one],
                 z[one], comp[one], cov[one], g[one])
-            if fslots:
-                dv1, da1 = scatter_via_slots(table18, fslots[0][one],
-                                             incidence, V)
-            else:
-                bins4, = _tiled(pipe, 1, bins[one])
-                dv1, da1 = scatter_via_faces(table18, bins4, incidence,
-                                             pipe.faces.shape[0], V)
+            bins4, = _tiled(pipe, 1, bins[one])
+            dv1, da1 = _scatter(pipe, table18, bins4,
+                                [fs[one] for fs in fslots], incidence, V)
             dv_clip[i] = dv1[0]
             d_attrs += da1
         d_bg = None

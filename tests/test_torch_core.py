@@ -18,6 +18,7 @@ from largesteps_tpu.core import (compute_matrix as j_compute_matrix,
                                  to_differential as j_to_diff,
                                  from_differential as j_from_diff,
                                  adam_uniform)
+from largesteps_tpu.core.optimize import adam
 from largesteps_tpu.core.sparse import from_coo as j_from_coo, coo_matvec as j_matvec
 from largesteps_tpu.ops import shapes as j_shapes
 from largesteps_tpu.ops.mesh import remove_duplicates as j_remove_duplicates
@@ -31,7 +32,7 @@ from largesteps_tpu.render.antialias import face_adjacency as j_face_adjacency
 from largesteps_tpu.render.renderer import render_backgrounds as j_backgrounds
 
 from largesteps_torch.core.geometry import compute_matrix
-from largesteps_torch.core.optimize import AdamUniform
+from largesteps_torch.core.optimize import Adam, AdamUniform
 from largesteps_torch.core.parameterize import (to_differential,
                                                 from_differential, get_solver)
 from largesteps_torch.core.solvers import CholeskySolver
@@ -141,18 +142,31 @@ def test_dense_limit_raises(mesh):
         CholeskySolver(M, dense_limit=4, max_block=64)
 
 
-def test_adam_uniform_three_steps():
+# each port optimizer beside its JAX transformation, and the leaves of the
+# transformation's state that hold (count, g1, g2)
+OPTIMIZERS = {
+    "AdamUniform": (adam_uniform, AdamUniform,
+                    lambda st: (st.count, st.g1, st.g2)),
+    "Adam": (adam, Adam, lambda st: (st[0].count, st[0].mu, st[0].nu)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_adam_uniform_three_steps(name):
+    """Each optimizer against its JAX transformation (AdamUniform, and
+    ``optax.adam`` for Adam) over 3 steps, rtol 1e-6."""
+    j_tx, t_opt, moments = OPTIMIZERS[name]
     rng = np.random.default_rng(3)
     u0 = rng.normal(size=(9, 3)).astype(np.float32)
     tr0 = rng.normal(size=(1, 3)).astype(np.float32)
     grads = [(rng.normal(size=(9, 3)).astype(np.float32),
               rng.normal(size=(1, 3)).astype(np.float32)) for _ in range(3)]
-    tx = adam_uniform(0.03)
+    tx = j_tx(0.03)
     theta_j = {"u": jnp.asarray(u0), "tr": jnp.asarray(tr0)}
     state = tx.init(theta_j)
     u = T(u0).clone().requires_grad_(True)
     tr = T(tr0).clone().requires_grad_(True)
-    opt = AdamUniform([tr, u], lr=0.03)
+    opt = t_opt([tr, u], lr=0.03)
     for gu, gt in grads:
         upd, state = tx.update({"u": jnp.asarray(gu), "tr": jnp.asarray(gt)},
                                state)
@@ -163,18 +177,24 @@ def test_adam_uniform_three_steps():
                                    rtol=1e-6, atol=1e-7)
         np.testing.assert_allclose(N(tr), np.asarray(theta_j["tr"]),
                                    rtol=1e-6, atol=1e-7)
-    assert opt.state[u]["count"] == int(state.count) == 3
-    np.testing.assert_allclose(N(opt.state[u]["g2"]),
-                               np.asarray(state.g2["u"]), rtol=1e-6)
+    count, _, g2 = moments(state)
+    assert opt.state[u]["count"] == int(count) == 3
+    np.testing.assert_allclose(N(opt.state[u]["g2"]), np.asarray(g2["u"]),
+                               rtol=1e-6)
 
 
-def test_checkpoint_leaf_order_matches_jax(tmp_path):
-    """A JAX checkpoint's leaves land in the port's theta and moments."""
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_checkpoint_leaf_order_matches_jax(tmp_path, name):
+    """A JAX checkpoint's leaves land in the port's theta and moments, and
+    the port's file reads back in the JAX package, for either optimizer
+    (optax's ``(ScaleByAdamState, EmptyState)`` flattens to count, mu.tr,
+    mu.u, nu.tr, nu.u: AdamUniform's order)."""
     from largesteps_tpu.driver.checkpoint import save_checkpoint as j_save
+    j_tx, t_opt, moments = OPTIMIZERS[name]
     rng = np.random.default_rng(4)
     theta = {"u": jnp.asarray(rng.normal(size=(6, 3)), jnp.float32),
              "tr": jnp.asarray(rng.normal(size=(1, 3)), jnp.float32)}
-    tx = adam_uniform(0.01)
+    tx = j_tx(0.01)
     state = tx.init(theta)
     for _ in range(2):
         _, state = tx.update(jax.tree.map(
@@ -187,22 +207,25 @@ def test_checkpoint_leaf_order_matches_jax(tmp_path):
     th, load_into = state_from_numpy(ck["theta"], ck["opt_state"], "cpu")
     np.testing.assert_array_equal(N(th["u"]), np.asarray(theta["u"]))
     np.testing.assert_array_equal(N(th["tr"]), np.asarray(theta["tr"]))
-    opt = AdamUniform([th["tr"], th["u"]], lr=0.01)
+    opt = t_opt([th["tr"], th["u"]], lr=0.01)
     load_into(opt)
+    _, g1, g2 = moments(state)
     assert opt.state[th["u"]]["count"] == 2
     np.testing.assert_array_equal(N(opt.state[th["u"]]["g1"]),
-                                  np.asarray(state.g1["u"]))
+                                  np.asarray(g1["u"]))
     np.testing.assert_array_equal(N(opt.state[th["tr"]]["g2"]),
-                                  np.asarray(state.g2["tr"]))
+                                  np.asarray(g2["tr"]))
     # and back: the port's file reads as the JAX package's
     from largesteps_tpu.driver.checkpoint import load_checkpoint as j_load
     path2 = os.path.join(tmp_path, "t.npz")
     save_checkpoint(path2, theta=th, optimizer=opt, v_src=np.zeros((6, 3)),
                     f_src=np.zeros((2, 3), np.int32), step=2, step_size=0.01)
     back = j_load(path2, theta_like=theta, opt_state_like=state)
-    np.testing.assert_array_equal(np.asarray(back["opt_state"].g1["tr"]),
-                                  np.asarray(state.g1["tr"]))
-    assert int(back["opt_state"].count) == 2
+    count_b, g1_b, g2_b = moments(back["opt_state"])
+    np.testing.assert_array_equal(np.asarray(g1_b["tr"]),
+                                  np.asarray(g1["tr"]))
+    np.testing.assert_array_equal(np.asarray(g2_b["u"]), np.asarray(g2["u"]))
+    assert int(count_b) == 2
 
 
 @pytest.mark.parametrize("name,arg", [("icosphere", 2), ("gourd", 2),

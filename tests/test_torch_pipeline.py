@@ -171,7 +171,7 @@ def test_port_checkpoint_resumes_in_port(scene, tmp_path):
 @pytest.mark.parametrize("params", [{"remesh": [2]}, {"sharding": {"dp": 2}},
                                     {"host_bin_faces": 100,   # row-sharded
                                      "sharding": {"dp": 1, "sp": 2}},
-                                    {"solver": "CG"}, {"optimizer": "Adam"}])
+                                    {"solver": "CG"}])
 def test_unported_driver_options_raise(scene, params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optimize_shape(scene, {"steps": 1, **params}, device="cpu")
