@@ -27,7 +27,11 @@ bench_step scene at 13 × 250², which only the dense renderer draws
 comparison figure's three suzanne legs at full length through
 ``largesteps_torch.figures.common.run``, their symmetric Hausdorff distances
 held to the JAX package's order, ours < bilaplacian < Laplacian
-regularization) and the port's benchmark (``bench``: the functions of
+regularization), remeshing (``remesh``: the remeshing figure's two
+remeshed cranium legs at full length, the multiscale figure's ``--quick``
+leg, the teaser's ``ours_remesh`` leg to 20 steps past its remesh, and the
+host Cholesky solver on the main path; each leg's epochs and their
+launches) and the port's benchmark (``bench``: the functions of
 ``largesteps_torch.benchmarks.bench``, the nefertiti line at 10 steps), the
 tile kernels' launches counted around each.  Prints one JSON line per
 phase, then the kernel table, the card's name and power limit, and as the
@@ -1151,6 +1155,207 @@ def phase_fit_quality(card):
     return passed, launches
 
 
+REMESH_TEASER_STEPS = 270   # of the leg's 1,320: the remesh at 250 and
+                            # 20 steps of the remeshed epoch
+TEASER_REMESH_VERTS = (120_000, 200_000)
+
+
+def _epochs(res, counts):
+    """Each topology epoch of a run (``figures.common.epochs``) with its
+    tile-kernel launches, from the launch counts taken as the run began,
+    as each remesh began and at the end (``counts``)."""
+    from largesteps_torch.figures.common import epochs
+    out = epochs(res)
+    for k, ep in enumerate(out):
+        ep["launches"] = {key: counts[k + 1][key] - counts[k][key]
+                          for key in counts[0]}
+    return out
+
+
+def _remesh_ok(res, epochs):
+    """The remeshing run's criteria: finite losses that fell, each remesh
+    to a mean edge length within the remesher's thresholds [4/5 h, 4/3 h]
+    and to more faces, a first render within its bins' cap, and the tile
+    kernels launched in every epoch (each of them at least once a step; in
+    an epoch of no steps, before a remesh at step 0, the reference
+    render's forward kernels)."""
+    losses = res["losses"][:, 0]
+    ok = (bool(np.isfinite(res["losses"]).all()) and len(losses) > 0
+          and losses[-1] < losses[0])
+    for e in res["prof"]["remeshes"]:
+        ok = ok and (0.8 * e["h"] <= e["mean_edge_after"] <= 4 / 3 * e["h"]
+                     and e["faces_after"] > e["faces_before"]
+                     and e["occupancy"] <= e["bin_cap"])
+    for ep in epochs:
+        need = (("raster_fwd", "aa_fwd") if ep["steps"] == 0
+                else tuple(ep["launches"]))
+        ok = ok and all(ep["launches"][k] >= max(ep["steps"], 1)
+                        for k in need)
+    return ok
+
+
+def phase_remesh(card):
+    """Remeshing on the card, through the port's entry points: (a) the
+    remeshing figure's two remeshed cranium legs at full length
+    (``remesh_start``: 1,500 steps, a remesh before the first;
+    ``remesh_middle``: 1,630 steps, a remesh at 750), (b) the multiscale
+    figure's ``--quick`` leg (120 steps at lr 0.1, remeshes at 40 and 80,
+    its last epoch on the banded solver and host bins), (c) the teaser's
+    ``ours_remesh`` leg cut to 270 steps (nefertiti_coarse, remeshed at step
+    250 to 120k-200k verts), then one forward and backward of the remeshed
+    mesh through the renderer's pick of the prebinned pipes, (d) 20 main-path
+    steps with the host Cholesky solver against the same with the dense
+    inverse, twice: the first loss, where only the solve differs, within
+    1e-4 relative, every loss within 5e-2 (the second dense run shows the
+    spread of two runs of one solver: the step's float atomics add in no
+    fixed order).  The tile kernels' launches are counted over the phase,
+    and per epoch of each leg."""
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.figures import common, multiscale, remeshing
+    from largesteps_torch.figures import teaser
+    from largesteps_torch.native import remesh as native_remesh
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    from largesteps_torch.profiling import MAIN_PATH_PARAMS, main_path_scene
+    from largesteps_torch.render import renderer as R
+    from largesteps_torch.io.synth import make_scene
+    launches = _zero_launches()
+    snaps = []
+    remesh_botsch = native_remesh.remesh_botsch
+
+    def counted(*args, **kw):
+        snaps.append(dict(launches))
+        return remesh_botsch(*args, **kw)
+
+    def leg(name, scene, params, subdir):
+        snaps[:] = [dict(launches)]
+        torch.cuda.reset_peak_memory_stats()
+        res, d = common.run(name, scene, params, subdir, device="cuda")
+        epochs = _epochs(res, snaps + [dict(launches)])
+        ok = _remesh_ok(res, epochs)
+        out = {"hausdorff": d, "steps": res["iters"],
+               "passed": ok, "epochs": epochs,
+               "remeshes": res["prof"]["remeshes"],
+               "setup_s": res["prof"]["setup_s"],
+               "first_step_s": res["prof"]["first_step_s"],
+               "rebin_n": res["prof"]["rebin_n"],
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "loss_first": float(res["losses"][0, 0]),
+               "loss_last": float(res["losses"][-1, 0])}
+        emit({"phase": "remesh_leg", "name": name, **out, "card": card})
+        return res, out
+
+    native_remesh.remesh_botsch = counted
+    try:
+        legs = {}
+        for name, params in remeshing.legs():
+            if params["remesh"] >= 0:
+                legs[name] = leg(name, remeshing.SCENE, params,
+                                 "remeshing")[1]
+        (name, params), = multiscale.legs(quick=True)
+        legs[name] = leg(name, multiscale.SCENE, params, "multiscale")[1]
+        params = dict(teaser.METHODS["ours_remesh"],
+                      steps=REMESH_TEASER_STEPS)
+        res, legs["ours_remesh"] = leg("ours_remesh", "nefertiti_coarse",
+                                       params, "teaser")
+    finally:
+        native_remesh.remesh_botsch = remesh_botsch
+    ms_last = legs["multiscale"]["remeshes"][-1]
+    ours = legs["ours_remesh"]["remeshes"]
+    checks = {
+        "legs": all(leg_["passed"] for leg_ in legs.values()),
+        "multiscale_banded_host_bins": (
+            len(legs["multiscale"]["remeshes"]) == 2
+            and ms_last["solver"]["tier"] == "banded"
+            and ms_last["use_host_bins"]),
+        "teaser_verts": (len(ours) == 1 and TEASER_REMESH_VERTS[0]
+                         <= ours[0]["verts_after"]
+                         <= TEASER_REMESH_VERTS[1]),
+        "remeshed": all(len(leg_["remeshes"]) >= 1
+                        for leg_ in legs.values()),
+    }
+
+    # (c)'s remeshed mesh through the renderer's pick of the prebinned pipes
+    scene = make_scene(**common.SCENES["nefertiti_coarse"])
+    r = R.Renderer(scene, shading=True, boost=3, device="cuda")
+    f = res["f_final"]
+    bins, counts, fslots, occ = host_bins(r, res["v_final"], f, 4.0,
+                                          return_slots=True)
+    up = lambda a: torch.as_tensor(a, device="cuda")
+    binned = (up(bins).long(), up(counts), up(fslots).long())
+    topo = R.Topology(f)
+    v = up(res["v_final"])
+    with torch.no_grad():
+        n = compute_vertex_normals(v, f, compute_face_normals(v, f))
+
+    def fwd_bwd():
+        vc = v.clone().requires_grad_(True)
+        r.render(vc, n, topo, bins=binned).sum().backward()
+
+    del res
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fwd_bwd()
+    torch.cuda.synchronize()
+    cap = bins.shape[-1]
+    pick = lambda c: ("camera_sequential" if r.camera_sequential(c, len(f))
+                      else "batched")
+    pipe = {"picks": pick(cap), "cap": int(cap),
+            "picks_at_epoch_cap": pick(ours[0]["bin_cap"]),
+            "epoch_cap": ours[0]["bin_cap"], "occupancy": int(occ), "faces": int(len(f)),
+            "peak_bytes": torch.cuda.max_memory_allocated() - base,
+            "ms": time_ms(fwd_bwd, 3, warm=1),
+            "batched_bytes": R.batched_bytes(len(r.view_mats), bins.shape[1],
+                                             cap, len(f)),
+            "batched_share": R.BATCHED_SHARE,
+            "device_bytes": R._device_bytes(torch.device("cuda"))}
+    del binned, topo, v, n
+    torch.cuda.empty_cache()
+
+    # (d) the host Cholesky solver against the dense inverse, and the dense
+    # inverse against itself: the step's float atomics make two runs of one
+    # solver part by up to 5e-3 within 20 steps on an H100, so 1e-4 holds
+    # where only the solve differs, the first step's loss
+    scene = main_path_scene(seed=SEED)
+    runs = {}
+    for tag, solver in (("CholeskyHost", "CholeskyHost"),
+                        ("Cholesky", "Cholesky"), ("Cholesky_again",
+                                                   "Cholesky")):
+        res = optimize_shape(scene, {**MAIN_PATH_PARAMS, "steps": STEPS,
+                                     "solver": solver}, device="cuda")
+        first = res["prof"]["first_step_s"]
+        runs[tag] = {"losses": res["losses"][:, 0],
+                     "tier": res["prof"]["solver"]["tier"],
+                     "it_per_s": (STEPS - 1) / (res["wall_time"] - first)}
+    ld = runs["Cholesky"]["losses"]
+    rel = {k: (np.abs(runs[k]["losses"] - ld) / np.abs(ld)).tolist()
+           for k in ("CholeskyHost", "Cholesky_again")}
+    lh = runs["CholeskyHost"]["losses"]
+    checks["cholesky_host"] = (bool(np.isfinite(lh).all()) and lh[-1] < lh[0]
+                               and rel["CholeskyHost"][0] <= 1e-4
+                               and max(rel["CholeskyHost"]) <= 5e-2
+                               and runs["CholeskyHost"]["tier"] == "host")
+    launches = dict(launches)
+    checks["launches"] = all(n >= 1 for n in launches.values())
+    passed = all(checks.values())
+    emit({"phase": "remesh", "passed": passed, "checks": checks,
+          "hausdorff": {k: leg_["hausdorff"] for k, leg_ in legs.items()},
+          "teaser_steps_cut": {"steps": REMESH_TEASER_STEPS, "of": 1320},
+          "teaser_remeshed_pipe": pipe,
+          "cholesky_host": {"loss_rel": rel,
+                            "tolerance": "first loss 1e-4, every loss 5e-2",
+                            **{k: {"tier": x["tier"],
+                                   "it_per_s": x["it_per_s"],
+                                   "loss_first": float(x["losses"][0]),
+                                   "loss_last": float(x["losses"][-1])}
+                               for k, x in runs.items()}},
+          "launches": launches, "output_dir": common.OUTPUT_DIR,
+          "card": card})
+    return passed, launches
+
+
 def phase_bench(card):
     """``largesteps_torch.benchmarks.bench``'s functions as its ``main``
     runs them, the nefertiti line at 10 steps: their JSON lines, each
@@ -1200,6 +1405,7 @@ def main():
                       ("large_f_pipes", phase_large_f_pipes),
                       ("large_f", phase_large_f),
                       ("fit_quality", phase_fit_quality),
+                      ("remesh", phase_remesh),
                       ("bench", phase_bench)):
         t0 = time.perf_counter()
         try:
@@ -1215,6 +1421,7 @@ def main():
     f_ok, f_launches, f_cap = results["large_f"] or (False, {}, None)
     p_ok, p_table = results["probe_kernels"] or (False, {})
     q_ok, q_launches = results["fit_quality"] or (False, {})
+    r_ok, r_launches = results["remesh"] or (False, {})
     b_ok, b_launches = results["bench"] or (False, {})
     # the kernels were held at the run's shapes: its cap is theirs
     fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
@@ -1228,6 +1435,7 @@ def main():
                               ("large_f_pipes", results["large_f_pipes"]),
                               ("large_f", f_ok),
                               ("fit_quality", q_ok),
+                              ("remesh", r_ok),
                               ("bench", b_ok)) if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
@@ -1240,6 +1448,7 @@ def main():
             "max_abs_err", "cap")}
         row["large_f"]["launches"] = f_launches[k]
         row["fit_quality_launches"] = q_launches[k]
+        row["remesh_launches"] = r_launches[k]
         row["bench_launches"] = b_launches[k]
     # the micro-benchmarks' kernels: their own launches, no large-F run;
     # ptxas's line of the instantiation that ran at each shape

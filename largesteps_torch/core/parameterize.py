@@ -9,10 +9,11 @@ from __future__ import annotations
 
 import weakref
 
-from .solvers import CholeskySolver, solve
+from .solvers import CholeskyHostSolver, CholeskySolver, solve
 from .sparse import SparseCOO, coo_matvec
 
-__all__ = ["to_differential", "from_differential", "get_solver"]
+__all__ = ["to_differential", "from_differential", "clear_cache",
+           "get_solver"]
 
 _cache: dict = {}
 
@@ -22,6 +23,11 @@ def _cache_put(key, value, structure):
         _cache.pop(key, None)
 
     _cache[key] = (value, weakref.ref(structure, _cleanup))
+
+
+def clear_cache():
+    """Drop every cached solver."""
+    _cache.clear()
 
 
 def to_differential(M: SparseCOO, v):
@@ -36,10 +42,12 @@ def get_solver(M: SparseCOO, method: str = "Cholesky"):
         return _cache[key][0]
     if method == "Cholesky":
         slv = CholeskySolver(M)
-    elif method in ("CG", "CholeskyHost", "AMG"):
+    elif method == "CholeskyHost":
+        slv = CholeskyHostSolver(M)
+    elif method in ("CG", "AMG"):
         raise NotImplementedError(
-            f"solver {method!r} is not ported yet (ROADMAP.md Queue 1: CG "
-            f"and the host/AMG solvers come with later slices)")
+            f"solver {method!r} is not ported yet (ROADMAP.md Queue 1, item "
+            f"3: CG and the AMG solvers)")
     else:
         raise ValueError(f"Unknown solver type '{method}'.")
     _cache_put(key, slv, M.structure)

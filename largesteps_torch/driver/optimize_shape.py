@@ -1,4 +1,4 @@
-"""The optimization driver: the unsharded, no-remesh path.
+"""The optimization driver: the unsharded path, with remeshing.
 
 Port of ``largesteps_tpu/driver/optimize_shape.py``: render the reference
 images, parameterize v → u with M = I + λL (or optimize the coordinates
@@ -20,11 +20,18 @@ displacement, which the host reads only once the step has run).  At most
 
 ``scene`` is a scene dict or the path of a scene XML file.  The optimizer
 is AdamUniform, plain Adam or a callable (see :func:`_make_optimizer`).
-Remeshing and sharding are later slices (ROADMAP.md Queue 1) and raise
-``NotImplementedError``.
+
+``remesh`` schedules Botsch-Kobbelt remeshes: an int ≥ 0 is one remesh at
+that step (0: before the first), a list is a schedule taken in order.  At a
+scheduled step the solved vertices are remeshed on the host to half their
+mean edge length (``native/remesh.cpp``), the old epoch is freed, the new
+one is built, and the optimizer starts afresh at 0.8 × the step size,
+keeping the translation.  Sharding is a later slice (ROADMAP.md Queue 1)
+and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import gc
 import os
 import time
 import warnings
@@ -42,7 +49,8 @@ from ..core.parameterize import get_solver, to_differential
 from ..core.solvers import solve
 from ..core.sparse import coo_matvec
 from ..io.xml_scene import load_scene
-from ..ops.mesh import remove_duplicates
+from ..native import remesh as native_remesh
+from ..ops.mesh import average_edge_length, remove_duplicates
 from ..ops.normals import compute_face_normals, compute_vertex_normals
 from ..render.camera import project
 from ..render.pipeline import bin_triangles_device, bin_triangles_host
@@ -133,6 +141,11 @@ def _to_host(t):
     return h
 
 
+def _allocated(dev):
+    """Bytes of tensors allocated on the card (None on the CPU)."""
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
+
+
 def _wait(event):
     if event is not None:
         event.synchronize()
@@ -163,14 +176,10 @@ class _Epoch:
     device_rebin_ok: bool = False  # spans fit the device binning's (2, 2)
     pending_occ: Any = None     # (host occupancy, event) of the last device
                                 # rebin
+    occupancy: int = 0          # bin occupancy of v_src at epoch build
 
 
 def _check_supported(p):
-    remesh = p["remesh"]
-    if (isinstance(remesh, (list, tuple)) and len(remesh)) or \
-            (isinstance(remesh, int) and remesh >= 0):
-        raise NotImplementedError("remeshing is a later slice "
-                                  "(ROADMAP.md Queue 1, item 2)")
     if p["sharding"]:
         raise NotImplementedError("sharding is a later slice "
                                   "(ROADMAP.md Queue 1, item 5)")
@@ -384,6 +393,7 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
             st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
                 renderer, v_src, st.topology, margin, cull=cull,
                 return_spans=True)
+        st.occupancy = int(occ)
         # mid-run rebins run on the device when the tile spans fit its
         # static (2, 2) bound
         st.device_rebin_ok = spans[0] <= 2 and spans[1] <= 2
@@ -397,7 +407,7 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
     else:
         # size the bins before the first render: an overflowing bin
         # under-draws its tile with no signal (a no-op on the dense backend)
-        renderer.check_overflow(v_src, st.topology)
+        st.occupancy = renderer.check_overflow(v_src, st.topology)
     _sync(device)
     setup["host_bins_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -474,6 +484,76 @@ def _solved(st, theta, p):
             else theta["u"].detach()
 
 
+def _fresh_theta(st, p, dev, tr=None):
+    """The parameters at the start of an epoch: u of the epoch's source
+    mesh (its coordinates when not ``smooth``) and the translation ``tr``
+    (zero when None), as leaf tensors."""
+    u0 = st.u if p["smooth"] else torch.as_tensor(
+        st.v_unique, dtype=torch.float32, device=dev)
+    if tr is None:
+        tr = torch.zeros((1, 3), dtype=torch.float32, device=dev)
+    return {"u": u0.detach().clone().requires_grad_(True),
+            "tr": tr.detach().clone().requires_grad_(True)}
+
+
+def _solver_info(st):
+    """The epoch's solver tier and, for the banded tier, its block."""
+    if st.solver is None:
+        return None
+    big = getattr(st.solver, "_big", None)
+    return {"tier": st.solver.tier,
+            "block": None if big is None else big.B,
+            "blocks": None if big is None else big.nb}
+
+
+def _pipe(renderer, st, cap):
+    """Which render path the epoch takes: ``dense``, ``traced`` (tile
+    bins made each step) or, on precomputed bins, ``batched`` or
+    ``camera_sequential``."""
+    if renderer.backend == "dense":
+        return "dense"
+    if not st.use_host_bins:
+        return "traced"
+    return "camera_sequential" if renderer.camera_sequential(
+        cap, st.topology.n_faces) else "batched"
+
+
+def _remesh_schedule(p, resume, start_it):
+    """(the step of the next remesh or -1, the steps of the later ones).
+    A resumed run takes the checkpoint's pending schedule; a remesh at
+    ``start_it`` is replayed, since checkpoints are written before the
+    remesh of their step."""
+    if resume is not None:
+        sched = [int(r) for r in resume["meta"]["remesh_schedule"]
+                 if r >= start_it]
+    elif isinstance(p["remesh"], (list, tuple)):
+        sched = [int(r) for r in p["remesh"]]
+    else:
+        sched = [int(p["remesh"])] if int(p["remesh"]) >= 0 else []
+    return (sched.pop(0) if sched else -1), sched
+
+
+def _remesh(st, theta, p, it):
+    """Remesh the solved vertices of epoch ``st`` on the host to half their
+    mean edge length.  Returns (v_src float32, f_src int32, the event's
+    record)."""
+    v_unique = _solved(st, theta, p).cpu().numpy()
+    h = 0.5 * float(average_edge_length(torch.as_tensor(v_unique),
+                                        st.f_unique))
+    native_remesh._load()       # a first use builds the library: untimed
+    t0 = time.perf_counter()
+    v_new, f_new = native_remesh.remesh_botsch(
+        v_unique.astype(np.float64), st.f_unique.astype(np.int32), 5, h,
+        True)
+    event = {"it": it, "h": h, "remesh_s": time.perf_counter() - t0,
+             "verts_before": int(len(v_unique)),
+             "faces_before": int(len(st.f_unique)),
+             "verts_after": int(len(v_new)), "faces_after": int(len(f_new)),
+             "mean_edge_after": float(average_edge_length(
+                 torch.as_tensor(v_new), f_new))}
+    return v_new.astype(np.float32), f_new.astype(np.int32), event
+
+
 @dataclass
 class _Run:
     """What the step loop needs, as :func:`_prepare` builds it."""
@@ -536,11 +616,7 @@ def _prepare(scene, p, dev) -> _Run:
         theta, load_moments = state_from_numpy(resume["theta"],
                                                resume["opt_state"], dev)
     else:
-        u0 = st.u if p["smooth"] else torch.as_tensor(
-            st.v_unique, dtype=torch.float32, device=dev)
-        theta = {"u": u0.detach().clone().requires_grad_(True),
-                 "tr": torch.zeros((1, 3), dtype=torch.float32, device=dev,
-                                   requires_grad=True)}
+        theta = _fresh_theta(st, p, dev)
     optimizer = _make_optimizer(p["optimizer"], [theta["tr"], theta["u"]],
                                 step_size)
     if resume is not None:
@@ -564,8 +640,11 @@ def optimize_shape(scene, params=None, device=None):
     (:func:`largesteps_torch.io.synth.make_scene`) or the path of a scene
     XML file (:func:`largesteps_torch.io.xml_scene.load_scene`).  Returns
     the JAX driver's result dict: losses (steps, 2) = (image loss,
-    bilaplacian magnitude), v_final, f_final, tr, iters, wall_time, prof
-    and the reference images and mesh."""
+    bilaplacian magnitude), v_final, f_final, f (the faces of every
+    epoch), tr, iters, wall_time, prof and the reference images and mesh.
+    ``prof["remeshes"]`` holds one record a remesh: its step, h, the mesh
+    before and after, the remesher's host seconds, the new epoch's setup
+    split, solver, bins and cap, and where it fell in the wall time."""
     dev = resolve_device(device)
     p = default_params()
     if params:
@@ -575,7 +654,7 @@ def optimize_shape(scene, params=None, device=None):
         scene = load_scene(os.fspath(scene))
     run = _prepare(scene, p, dev)
     st, theta, optimizer, step = run.st, run.theta, run.optimizer, run.step
-    renderer = run.renderer
+    renderer, ref_imgs = run.renderer, run.ref_imgs
     v_src, f_src, resume = run.v_src, run.f_src, run.resume
     step_size = run.step_size
 
@@ -584,17 +663,22 @@ def optimize_shape(scene, params=None, device=None):
     if float(p["time"]) > 0:
         steps = -1
     start_it = int(resume["meta"]["step"]) if resume is not None else 0
+    remesh_it, remesh_schedule = _remesh_schedule(p, resume, start_it)
 
     result = {"vert_steps": [], "tr_steps": [], "f": [f_src.copy()],
-              "losses": [], "im_ref": run.ref_imgs.cpu().numpy(),
+              "losses": [], "im_ref": ref_imgs.cpu().numpy(),
               "v_ref": run.v_ref.cpu().numpy(), "f_ref": run.f_ref.copy()}
     prof = {"first_step_s": 0.0, "rebin_s": 0.0, "rebin_n": 0,
-            "setup_s": time.perf_counter() - t_setup0, **run.setup}
+            "setup_s": time.perf_counter() - t_setup0, **run.setup,
+            "remeshes": []}
+    del run                     # the epoch is held by the names above only
 
     def checkpoint(it):
+        pending = ([remesh_it] if remesh_it > 0 else []) + remesh_schedule
         save_checkpoint(p["checkpoint_path"], theta=theta,
                         optimizer=optimizer, v_src=v_src, f_src=f_src,
-                        step=it, step_size=step_size, remesh_schedule=[])
+                        step=it, step_size=step_size,
+                        remesh_schedule=pending)
 
     it = start_it
     rebins = _Rebins(st, p, renderer, theta, start_it, prof)
@@ -606,6 +690,38 @@ def optimize_shape(scene, params=None, device=None):
         if p["checkpoint_every"] and p["checkpoint_path"] and it > start_it \
                 and it % p["checkpoint_every"] == 0:
             checkpoint(it)
+        if it == remesh_it:
+            _sync(dev)          # every queued step of the old epoch has run
+            t_rm = time.perf_counter()
+            v_src, f_src, event = _remesh(st, theta, p, it)
+            tr = theta["tr"].detach().clone()
+            event["allocated_before"] = _allocated(dev)
+            # free the old epoch before building the new one: its bins,
+            # pipes (Topology), solver factor, the step's closure, the
+            # rebin queues and the optimizer's moments
+            st = theta = optimizer = step = rebins = v_last = None
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            event["allocated_after"] = _allocated(dev)
+            setup = {}
+            st = _build_epoch(v_src, f_src, p, renderer, dev, setup)
+            result["f"].append(f_src.copy())
+            step_size *= 0.8
+            theta = _fresh_theta(st, p, dev, tr)
+            optimizer = _make_optimizer(p["optimizer"],
+                                        [theta["tr"], theta["u"]], step_size)
+            step = _make_step(st, p, renderer, ref_imgs, theta, optimizer)
+            rebins = _Rebins(st, p, renderer, theta, it, prof)
+            cap = st.bin_cap if st.use_host_bins else renderer.bin_cap
+            event.update(
+                setup=setup, solver=_solver_info(st),
+                use_host_bins=st.use_host_bins, occupancy=st.occupancy,
+                bin_cap=cap, pipe=_pipe(renderer, st, cap),
+                step_size=step_size, wall_at=t_rm - t0,
+                seconds=time.perf_counter() - t_rm)
+            prof["remeshes"].append(event)
+            remesh_it = remesh_schedule.pop(0) if remesh_schedule else -1
         rebins.before(it, v_last)
         t_st = time.perf_counter()
         losses, v_last, disp = step()
@@ -649,9 +765,6 @@ def optimize_shape(scene, params=None, device=None):
     prof["backend"] = renderer.backend
     prof["raster_chunk"] = renderer.chunk
     if st.solver is not None:
-        big = st.solver._big
-        prof["solver"] = {"tier": st.solver.tier,
-                          "block": None if big is None else big.B,
-                          "blocks": None if big is None else big.nb}
+        prof["solver"] = _solver_info(st)
     result["prof"] = prof
     return result

@@ -4,13 +4,16 @@ Port of ``figures/common.py``: run one configuration of the driver on a
 named synthetic stand-in scene and write its final mesh (``<name>_final.ply``),
 its loss curve (``<name>_loss.csv``: iteration, im_loss, reg_loss) and its
 metrics (``<name>_metrics.csv``: hausdorff, iters, wall_time_s, iters_per_s,
-rebin_s, rebin_n, setup_s, first_step_s) under ``OUTPUT_DIR/<subdir>``.
+rebin_s, rebin_n, setup_s, first_step_s) under ``OUTPUT_DIR/<subdir>``; a
+run that remeshes also prints each remesh's record and each topology
+epoch's steps and rate as JSON lines.
 ``OUTPUT_DIR`` is ``LS_OUTPUT_DIR`` or ``largesteps_torch/figures/output``
 (the JAX experiments' results stay in ``figures/output``).
 """
 from __future__ import annotations
 
 import csv
+import json
 import os
 
 from ..driver import optimize_shape
@@ -18,7 +21,7 @@ from ..io.ply import write_ply
 from ..io.synth import make_scene
 from ..metrics import symmetric_hausdorff
 
-__all__ = ["OUTPUT_DIR", "SCENES", "run", "cli"]
+__all__ = ["OUTPUT_DIR", "SCENES", "run", "epochs", "cli"]
 
 OUTPUT_DIR = os.environ.get(
     "LS_OUTPUT_DIR", os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -41,6 +44,22 @@ SCENES = {
     "nefertiti_coarse": dict(source=("icosphere", 6), target=("gourd", 7), n_views=13, res=256),
     "dragon":   dict(source=("icosphere", 4), target=("supershape", 5), n_views=13, res=256),
 }
+
+
+def epochs(result):
+    """Each topology epoch of a driver run: its steps, faces, seconds on the
+    host clock between the remeshes (the first step's included) and it/s,
+    from ``prof["remeshes"]``."""
+    events = result["prof"]["remeshes"]
+    bounds = [0] + [e["it"] for e in events] + [result["iters"]]
+    starts = [0.0] + [e["wall_at"] + e["seconds"] for e in events]
+    ends = [e["wall_at"] for e in events] + [result["wall_time"]]
+    out = []
+    for k in range(len(bounds) - 1):
+        n, s = bounds[k + 1] - bounds[k], ends[k] - starts[k]
+        out.append({"steps": n, "faces": int(len(result["f"][k])), "s": s,
+                    "it_per_s": n / s if n else None})
+    return out
 
 
 def run(name, scene_name, params, out_subdir, device=None):
@@ -76,11 +95,16 @@ def run(name, scene_name, params, out_subdir, device=None):
     print(f"[{out_subdir}/{name}] hausdorff={d:.5f} "
           f"iters={result['iters']} ({it_s:.1f} it/s, "
           f"rebins={prof.get('rebin_n', 0)})", flush=True)
+    if prof.get("remeshes"):
+        tag = f"{out_subdir}/{name}"
+        for event in prof["remeshes"]:
+            print(json.dumps({"run": tag, "remesh": event}), flush=True)
+        print(json.dumps({"run": tag, "epochs": epochs(result)}), flush=True)
     return result, d
 
 
 def cli(argv, description):
-    """The experiments' command line: ``--quick`` (50 steps a leg),
+    """The experiments' command line: ``--quick`` (a short run of each leg),
     ``--only NAME`` and ``--device`` (default ``cuda``)."""
     import argparse
     ap = argparse.ArgumentParser(description=description)

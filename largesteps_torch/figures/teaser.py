@@ -7,10 +7,9 @@ reference figures/teaser/generate_data.py:18-38).
 
 Boost 3, α = 0.98, l1 loss; AdamUniform at 2e-3 for the smooth legs, Adam
 at 1e-2 for ``reg`` (weight 16) and ``naive``.  ``ours_remesh`` starts from
-``nefertiti_coarse`` and remeshes at step 250: the port's driver raises
-``NotImplementedError`` on it until remeshing is ported (ROADMAP.md Queue
-1).  ``cull_backfaces`` stays off, as in the JAX experiment.  ``--quick``
-runs at most 50 steps a leg.
+``nefertiti_coarse`` (icosphere-6) and remeshes at step 250, to about 160k
+vertices.  ``cull_backfaces`` stays off, as in the JAX experiment.
+``--quick`` runs at most 50 steps a leg.
 """
 from __future__ import annotations
 

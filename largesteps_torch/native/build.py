@@ -1,12 +1,13 @@
 """Build the port's host library of C++ code, lazily, at its first use.
 
-The sources (``hausdorff.cpp`` and its ``bvh.hpp``, copies of the JAX
-package's) compile with ``g++ -O3 -std=c++17 -shared -fPIC -march=native
--funroll-loops`` into one shared object under ``native/_build/``.  Its name
-carries a hash of the sources, the flags and the host's CPU (``-march=native``
-code runs only on the CPU it was built for), so an unchanged tree is not
-rebuilt and two hosts sharing a checkout never load each other's library.
-A failed build raises: nothing falls back to another implementation.
+The sources (``hausdorff.cpp``, ``remesh.cpp``, ``cholesky.cpp`` and their
+``bvh.hpp``, copies of the JAX package's) compile with the JAX build's
+flags, ``g++ -O3 -std=c++17 -shared -fPIC -march=native -funroll-loops``,
+into one shared object under ``native/_build/``.  Its name carries a hash
+of the sources, the flags and the host's CPU (``-march=native`` code runs
+only on the CPU it was built for), so an unchanged tree is not rebuilt and
+two hosts sharing a checkout never load each other's library.  A failed
+build raises: nothing falls back to another implementation.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ __all__ = ["lib_path"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(_DIR, "_build")
-SOURCES = ("hausdorff.cpp",)
+SOURCES = ("hausdorff.cpp", "remesh.cpp", "cholesky.cpp")
 HEADERS = ("bvh.hpp",)
 FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
          "-funroll-loops")

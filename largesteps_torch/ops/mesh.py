@@ -1,15 +1,18 @@
-"""Mesh utilities: vertex welding and a clamped ``acos``.
+"""Mesh utilities: vertex welding, edge length, Voronoi cell areas and a
+clamped ``acos``.
 
 Port of ``largesteps_tpu/ops/mesh.py`` (``remove_duplicates``,
-``safe_acos``).  ``average_edge_length`` and ``massmatrix_voronoi`` belong
-to the remeshing and metrics slices (ROADMAP.md Queue 1).
+``average_edge_length``, ``massmatrix_voronoi``, ``safe_acos``; reference
+scripts/geometry.py).  Welding changes the vertex count, so it runs on the
+host with numpy; the rest are torch functions on tensors.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["remove_duplicates", "safe_acos"]
+__all__ = ["remove_duplicates", "average_edge_length", "massmatrix_voronoi",
+           "safe_acos"]
 
 
 def remove_duplicates(v, f):
@@ -32,3 +35,62 @@ def safe_acos(x: torch.Tensor) -> torch.Tensor:
     derivative is infinite, and one inf gradient component turns every
     parameter NaN through AdamUniform's global-max denominator."""
     return torch.arccos(torch.clamp(x, -1.0 + 1e-6, 1.0 - 1e-6))
+
+
+def _as_tensors(verts, faces):
+    v = torch.as_tensor(verts)
+    return v, torch.as_tensor(faces, device=v.device).long()
+
+
+def average_edge_length(verts, faces) -> torch.Tensor:
+    """Mean length of all face sides, each interior edge counted twice
+    (scripts/geometry.py:13-33); in ``verts``' dtype."""
+    v, f = _as_tensors(verts, faces)
+    fv = v[f]
+    v0, v1, v2 = fv[:, 0], fv[:, 1], fv[:, 2]
+    a = torch.linalg.norm(v1 - v2, dim=1)
+    b = torch.linalg.norm(v0 - v2, dim=1)
+    c = torch.linalg.norm(v0 - v1, dim=1)
+    return (a + b + c).sum() / (3 * f.shape[0])
+
+
+def massmatrix_voronoi(verts, faces) -> torch.Tensor:
+    """Voronoi cell area around each vertex, (V,), with the obtuse-triangle
+    correction (scripts/geometry.py:35-89): a corner past 90° takes half
+    its triangle's area and the other two a quarter each."""
+    v, f = _as_tensors(verts, faces)
+    fv = v[f]
+    l0 = torch.linalg.norm(fv[:, 1] - fv[:, 2], dim=1)
+    l1 = torch.linalg.norm(fv[:, 2] - fv[:, 0], dim=1)
+    l2 = torch.linalg.norm(fv[:, 0] - fv[:, 1], dim=1)
+    l = torch.stack([l0, l1, l2], dim=1)
+
+    cos0 = (l1**2 + l2**2 - l0**2) / (2 * l1 * l2)
+    cos1 = (l2**2 + l0**2 - l1**2) / (2 * l2 * l0)
+    cos2 = (l0**2 + l1**2 - l2**2) / (2 * l0 * l1)
+    cosines = torch.stack([cos0, cos1, cos2], dim=1)
+
+    barycentric = cosines * l
+    barycentric = barycentric / barycentric.sum(dim=1, keepdim=True)
+
+    areas = 0.25 * torch.sqrt(torch.clamp(
+        (l0 + l1 + l2) * (l0 + l1 - l2) * (l0 - l1 + l2) * (-l0 + l1 + l2),
+        min=0.0))
+    tri_areas = areas[:, None] * barycentric
+
+    cells = torch.stack([0.5 * (tri_areas[:, 1] + tri_areas[:, 2]),
+                         0.5 * (tri_areas[:, 2] + tri_areas[:, 0]),
+                         0.5 * (tri_areas[:, 0] + tri_areas[:, 1])], dim=1)
+
+    # the obtuse corrections, one corner after the other as the reference
+    # applies them
+    for k in range(3):
+        obtuse = cosines[:, k] < 0
+        cols = [None] * 3
+        cols[k] = torch.where(obtuse, 0.5 * areas, cells[:, k])
+        for j in ((k + 1) % 3, (k + 2) % 3):
+            cols[j] = torch.where(obtuse, 0.25 * areas, cells[:, j])
+        cells = torch.stack(cols, dim=1)
+
+    out = torch.zeros(v.shape[0], dtype=cells.dtype, device=cells.device)
+    return out.index_add_(0, f.reshape(-1), cells.reshape(-1))

@@ -49,6 +49,10 @@ cotangents from a numpy seed.
   field items; both wrappers refusing inputs that do not start on 16
   bytes.
 * The dense renderer on the card against the same render on the CPU.
+* Remeshing: the driver with a remesh before the first step (``smooth``
+  off, so both remesh the source mesh itself) on the card against the same
+  run on the CPU, through the tile kernels; the host Cholesky solver on
+  CUDA tensors against the dense inverse.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
@@ -56,7 +60,9 @@ plain version's operations in order); per-slot sums 1e-5 × max|sum| (atomics
 add in another order than ``index_add_``, and so do onehot_scatter's and
 probe_tile's sums); probe_tile's fields exact; bins exact; the banded solve
 1e-5 relative; pipe and dense images 1e-5 absolute and gradients 1e-4 ×
-max|g| (the projection and the glue run as PyTorch's CUDA kernels).
+max|g| (the projection and the glue run as PyTorch's CUDA kernels); the
+remeshed run's topology exact and its losses 1e-4 relative; the host
+solver 1e-5 × max|x| (a float64 factor against a float32 inverse).
 """
 import numpy as np
 import pytest
@@ -786,3 +792,55 @@ def test_gpu_dense_renderer_matches_cpu(shading):
     assert _max_abs(gg, gc) < 1e-4 * float(gc.abs().max())
     if shading:
         assert _max_abs(ng, nc) < 1e-4 * float(nc.abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_remesh_at_start_matches_cpu():
+    """icosphere-2 fitted to gourd-2 in 2 views of 128² (the tile kernels),
+    Adam on the coordinates, remeshed before the first step: the same
+    topology on the card and on the CPU, and the same losses."""
+    from largesteps_torch.driver import optimize_shape
+    dev = _card()
+    scene = make_scene(source=("icosphere", 2), target=("gourd", 2),
+                       n_views=2, res=128)
+    params = {"smooth": False, "optimizer": "Adam", "reg": 0.16,
+              "loss": "l1", "alpha": 0.95, "boost": 3, "step_size": 1e-2,
+              "steps": 5, "remesh": 0}
+    launches = dict(K.LAUNCHES)
+    card = optimize_shape(scene, params, device=dev)
+    assert all(K.LAUNCHES[k] >= launches[k] + params["steps"]
+               for k in launches)
+    cpu = optimize_shape(scene, params, device="cpu")
+    assert len(card["f"]) == len(cpu["f"]) == 2
+    for a, b in zip(card["f"], cpu["f"]):
+        np.testing.assert_array_equal(a, b)
+    assert len(card["f"][1]) > len(card["f"][0])
+    assert np.isfinite(card["losses"]).all()
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_gpu_cholesky_host_solver():
+    """icosphere-4 (2,562 verts): the host solver on CUDA tensors against
+    the dense inverse on the card, its solve and its gradient."""
+    from largesteps_torch.core.geometry import compute_matrix
+    from largesteps_torch.core.solvers import (CholeskyHostSolver,
+                                               CholeskySolver, solve)
+    from largesteps_torch.ops.shapes import icosphere
+    dev = _card()
+    v, f = icosphere(4)
+    M = compute_matrix(v.astype(np.float32), f, lambda_=19.0, device=dev)
+    host, dense = CholeskyHostSolver(M), CholeskySolver(M)
+    rng = np.random.default_rng(0)
+    b, w = (torch.as_tensor(rng.normal(size=(len(v), 3)).astype(np.float32),
+                            device=dev) for _ in range(2))
+    out = []
+    for slv in (host, dense):
+        bb = b.clone().requires_grad_(True)
+        x = solve(slv, bb)
+        (w * x).sum().backward()
+        assert x.device == b.device and x.dtype == torch.float32
+        out.append((x.detach(), bb.grad))
+    (xh, gh), (xd, gd) = out
+    assert _max_abs(xh, xd) < 1e-5 * float(xd.abs().max())
+    assert _max_abs(gh, gd) < 1e-5 * float(gd.abs().max())

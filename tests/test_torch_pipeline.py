@@ -168,7 +168,7 @@ def test_port_checkpoint_resumes_in_port(scene, tmp_path):
     np.testing.assert_allclose(second["v_final"], both["v_final"], atol=1e-6)
 
 
-@pytest.mark.parametrize("params", [{"remesh": [2]}, {"sharding": {"dp": 2}},
+@pytest.mark.parametrize("params", [{"solver": "AMG"}, {"sharding": {"dp": 2}},
                                     {"host_bin_faces": 100,   # row-sharded
                                      "sharding": {"dp": 1, "sp": 2}},
                                     {"solver": "CG"}])
