@@ -31,9 +31,14 @@ regularization), remeshing (``remesh``: the remeshing figure's two
 remeshed cranium legs at full length, the multiscale figure's ``--quick``
 leg, the teaser's ``ours_remesh`` leg to 20 steps past its remesh, and the
 host Cholesky solver on the main path; each leg's epochs and their
-launches) and the port's benchmark (``bench``: the functions of
-``largesteps_torch.benchmarks.bench``, the nefertiti line at 10 steps), the
-tile kernels' launches counted around each.  Prints one JSON line per
+launches), the iterative solvers (``solvers``: 20 main-path steps under
+``"CG"`` beside ``"Cholesky"``; at nefertiti's matrix the block-AMG tier,
+its dense-block matvec and CG against the banded tier; 20 steps of the
+teaser's ``ours`` leg under ``"AMG"``; the cotangent Laplacian and its
+gradient on the card against the CPU) and the port's benchmark
+(``bench``: the functions of ``largesteps_torch.benchmarks.bench``, the
+nefertiti line at 10 steps), the tile kernels' launches counted around
+each.  Prints one JSON line per
 phase, then the kernel table, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without the
 ``ok`` line, if there is no CUDA device or any phase fails.  Imports
@@ -1356,6 +1361,181 @@ def phase_remesh(card):
     return passed, launches
 
 
+def _steady(res):
+    first = res["prof"]["first_step_s"]
+    return (res["iters"] - 1) / (res["wall_time"] - first)
+
+
+def phase_solvers(card):
+    """The iterative solvers on the card, through the port's entry points:
+    (a) 20 main-path steps with ``solver: "CG"`` beside 20 with
+    ``"Cholesky"``: the first loss within 1e-4 relative, every loss within
+    5e-2 (two runs of one solver part by up to 9.5e-3 in 20 steps, the
+    ``remesh`` phase's finding), CG's iterations a step (forward, backward;
+    step 0's forward starts at its solution up to the card's rounding, so
+    it takes fewer than the cold backward); (b) at nefertiti's matrix
+    (icosphere-7, α = 0.98): ``CholeskySolver(M, max_block=256)`` on the
+    block-AMG tier (its levels, blocks, bytes, setup, iterations and solve
+    ms) against the banded tier's solve of the same seeded right-hand
+    sides (5e-4 abs, the JAX package's bar), its fine level's dense-block
+    matvec against ``coo_matvec`` (2e-4 abs) and ``cg_solve`` against the
+    banded solve (5e-4 abs); (c) 20 steps of the teaser's ``ours`` leg at
+    nefertiti with ``solver: "AMG"``; (d) ``compute_matrix(cotan=True)``
+    at the main path's mesh and the gradient in the vertices of
+    ``Σ w ⊙ (L_cot v)`` on the card against the CPU (1e-5 relative to the
+    largest entry).  The tile kernels' launches are counted over the phase
+    and in each driver run."""
+    from largesteps_torch.core import multigrid as mg
+    from largesteps_torch.core.blocksp import BlockedOperator
+    from largesteps_torch.core.geometry import compute_matrix, laplacian_cot
+    from largesteps_torch.core.solvers import (CholeskySolver,
+                                               ConjugateGradientSolver)
+    from largesteps_torch.core.sparse import coo_matvec
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.profiling import (LARGE_F_PARAMS,
+                                            MAIN_PATH_PARAMS,
+                                            large_f_scene, main_path_scene)
+    launches = _zero_launches()
+    checks = {}
+    dev = torch.device("cuda")
+
+    def run(scene, params):
+        before = dict(launches)
+        torch.cuda.reset_peak_memory_stats()
+        res = optimize_shape(scene, {**params, "steps": STEPS}, device=dev)
+        prof = res["prof"]
+        it = prof.get("solve_iters")
+        out = {"tier": prof["solver"]["tier"], "solver": prof["solver"],
+               "it_per_s": _steady(res), "first_step_s": prof["first_step_s"],
+               "setup_s": {k: prof[k] for k in (
+                   "setup_s", "ref_render_s", "topology_s", "host_bins_s",
+                   "factor_s")},
+               "solve_iters": None if it is None else it.tolist(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "losses": res["losses"][:, 0],
+               "launches": {k: launches[k] - before[k] for k in launches}}
+        losses = out["losses"]
+        out["falls"] = (bool(np.isfinite(res["losses"]).all())
+                        and losses[-1] < losses[0]
+                        and all(n >= STEPS
+                                for n in out["launches"].values()))
+        return out
+
+    # (a) the main path under CG, beside the dense inverse
+    scene = main_path_scene(seed=SEED)
+    main = {s: run(scene, {**MAIN_PATH_PARAMS, "solver": s})
+            for s in ("CG", "Cholesky")}
+    l_cg, l_ch = main["CG"]["losses"], main["Cholesky"]["losses"]
+    rel = (np.abs(l_cg - l_ch) / np.abs(l_ch)).tolist()
+    it = np.asarray(main["CG"]["solve_iters"])
+    checks["main_cg"] = (main["CG"]["falls"] and main["CG"]["tier"] == "cg"
+                         and rel[0] <= 1e-4 and max(rel) <= 5e-2
+                         and it.shape == (STEPS, 2)
+                         and it[0, 0] < it[0, 1]
+                         and bool((it[:, 1] > 0).all()))
+    checks["main_cholesky"] = main["Cholesky"]["falls"]
+
+    # (b) nefertiti's matrix: block-AMG, its blocked matvec and CG against
+    # the banded tier
+    scene = large_f_scene(seed=SEED)
+    vs, fs = scene["mesh-source"]["vertices"], scene["mesh-source"]["faces"]
+    M = compute_matrix(vs, fs, alpha=LARGE_F_PARAMS["alpha"], device=dev)
+    n = M.shape[0]
+    b = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(n, 3)).astype(np.float32), device=dev)
+    banded = CholeskySolver(M)
+    x_ref = banded.solve(b)
+    banded_ms = time_ms(lambda: banded.solve(b), 5)
+    banded_tier = banded.tier
+    del banded
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bamg = CholeskySolver(M, max_block=256)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    h = bamg._big._mg.h
+    fine = h.levels[0].op
+    x = bamg.solve(b)
+    bamg_iters = int(bamg.iters)
+    x_warm = bamg.solve(b, x)
+    warm_iters = int(bamg.iters)
+    bamg_ms = time_ms(lambda: bamg.solve(b), 3, warm=1)
+    e_bamg = max_abs(x, x_ref)
+    perm, inv = bamg._big.perm, bamg._big.inv_perm
+    xp = torch.zeros((bamg._big.n_pad, 3), device=dev)
+    xp[:n] = b[perm]
+    y_ref = coo_matvec(M, b)
+    e_mv = max_abs(fine.matvec(xp)[inv], y_ref)
+    block_mv_ms = time_ms(lambda: fine.matvec(xp), 20)
+    coo_mv_ms = time_ms(lambda: coo_matvec(M, b), 20)
+    blockamg = {"tier": bamg.tier, **mg.describe(h),
+                "fine_blocked": isinstance(fine, BlockedOperator),
+                "setup_s": setup_s, "iters_cold": bamg_iters,
+                "iters_warm": warm_iters, "solve_ms": bamg_ms,
+                "max_abs_err_vs_banded": e_bamg,
+                "warm_max_abs_err_vs_banded": max_abs(x_warm, x_ref),
+                "matvec_max_abs_err_vs_coo": e_mv,
+                "block_matvec_ms": block_mv_ms, "coo_matvec_ms": coo_mv_ms}
+    del bamg, h, fine, x, x_warm, xp
+    torch.cuda.empty_cache()
+    cg = ConjugateGradientSolver(M)
+    x = cg.solve(b)
+    cg_iters = int(cg.iters)
+    cg_ms = time_ms(lambda: cg.solve(b), 3, warm=1)
+    e_cg = max_abs(x, x_ref)
+    del cg, x, M, b, x_ref, y_ref
+    torch.cuda.empty_cache()
+    checks["blockamg"] = (blockamg["tier"] == "blockamg"
+                          and blockamg["fine_blocked"] and e_bamg <= 5e-4
+                          and blockamg["warm_max_abs_err_vs_banded"] <= 5e-4
+                          and e_mv <= 2e-4 and banded_tier == "banded")
+    checks["cg_163842v"] = e_cg <= 5e-4
+
+    # (c) the nefertiti leg under AMG
+    amg = run(scene, {**LARGE_F_PARAMS, "solver": "AMG"})
+    checks["amg_leg"] = amg["falls"] and amg["tier"] == "amg"
+    del scene
+    torch.cuda.empty_cache()
+
+    # (d) the cotangent Laplacian on the card against the CPU
+    ms = main_path_scene(seed=SEED)["mesh-source"]
+    v, f = ms["vertices"], ms["faces"]
+    w = np.random.default_rng(SEED).normal(size=v.shape).astype(np.float32)
+    cot = {}
+    for d in ("cpu", "cuda"):
+        vt = torch.as_tensor(v, device=d).requires_grad_(True)
+        vals = compute_matrix(vt, f, lambda_=19.0, cotan=True).vals
+        (torch.as_tensor(w, device=d)
+         * coo_matvec(laplacian_cot(vt, f), vt)).sum().backward()
+        cot[d] = (vals.detach().cpu(), vt.grad.cpu())
+    cot_err = [max_abs(a, b) / float(b.abs().max())
+               for a, b in zip(cot["cuda"], cot["cpu"])]
+    checks["cotan"] = max(cot_err) <= 1e-5
+
+    launches = dict(launches)
+    checks["launches"] = all(n >= 3 * STEPS for n in launches.values())
+    passed = all(checks.values())
+    for r in (*main.values(), amg):
+        r["losses"] = {"first": float(r["losses"][0]),
+                       "last": float(r["losses"][-1])}
+    emit({"phase": "solvers", "passed": passed, "checks": checks,
+          "main_path": main, "main_loss_rel": rel,
+          "tolerance": {"main_path": "first loss 1e-4, every loss 5e-2",
+                        "blockamg, cg_163842v": "5e-4 abs vs banded",
+                        "matvec": "2e-4 abs vs coo_matvec",
+                        "cotan": "1e-5 x max|cpu|"},
+          "nefertiti": {"verts": n, "alpha": LARGE_F_PARAMS["alpha"],
+                        "banded_tier": banded_tier,
+                        "banded_solve_ms": banded_ms,
+                        "blockamg": blockamg,
+                        "cg": {"iters_cold": cg_iters, "solve_ms": cg_ms,
+                               "max_abs_err_vs_banded": e_cg}},
+          "amg_leg": amg, "cotan_rel_err": {"vals": cot_err[0],
+                                            "grad": cot_err[1]},
+          "launches": launches, "card": card})
+    return passed, launches
+
+
 def phase_bench(card):
     """``largesteps_torch.benchmarks.bench``'s functions as its ``main``
     runs them, the nefertiti line at 10 steps: their JSON lines, each
@@ -1379,7 +1559,8 @@ def phase_bench(card):
             "opt_iters_per_s_163842v_sustained", "nefertiti_first_step_s",
             "nefertiti_rebin_ms", "nefertiti_rebin_n", "opt_iters_per_s"]
     solves = [n for n in names if n.startswith("from_differential_ms_")]
-    passed = (all(n in names for n in want) and len(solves) == 3
+    passed = (all(n in names for n in want) and len(solves) == 4
+              and "from_differential_ms_cg_163842v" in solves
               and names[-1] == "opt_iters_per_s"
               and all(np.isfinite(line["value"]) for line in lines)
               and all(n >= 1 for n in launches.values()))
@@ -1406,6 +1587,7 @@ def main():
                       ("large_f", phase_large_f),
                       ("fit_quality", phase_fit_quality),
                       ("remesh", phase_remesh),
+                      ("solvers", phase_solvers),
                       ("bench", phase_bench)):
         t0 = time.perf_counter()
         try:
@@ -1422,6 +1604,7 @@ def main():
     p_ok, p_table = results["probe_kernels"] or (False, {})
     q_ok, q_launches = results["fit_quality"] or (False, {})
     r_ok, r_launches = results["remesh"] or (False, {})
+    s_ok, s_launches = results["solvers"] or (False, {})
     b_ok, b_launches = results["bench"] or (False, {})
     # the kernels were held at the run's shapes: its cap is theirs
     fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
@@ -1436,6 +1619,7 @@ def main():
                               ("large_f", f_ok),
                               ("fit_quality", q_ok),
                               ("remesh", r_ok),
+                              ("solvers", s_ok),
                               ("bench", b_ok)) if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
@@ -1449,6 +1633,7 @@ def main():
         row["large_f"]["launches"] = f_launches[k]
         row["fit_quality_launches"] = q_launches[k]
         row["remesh_launches"] = r_launches[k]
+        row["solvers_launches"] = s_launches[k]
         row["bench_launches"] = b_launches[k]
     # the micro-benchmarks' kernels: their own launches, no large-F run;
     # ptxas's line of the instantiation that ran at each shape

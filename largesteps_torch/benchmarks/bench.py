@@ -9,7 +9,8 @@ as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
 them.  In order:
 
 * ``from_differential_ms_{tier}_{n}v``: one solve of the ``"Cholesky"``
-  solver at icosphere-4, 6 and 7 (λ = 19), labelled with the tier that ran;
+  solver at icosphere-4, 6 and 7 and of the ``"CG"`` solver at icosphere-7
+  (λ = 19, cold starts), labelled with the tier that ran;
 * ``raster_fwd_mpix_per_s``, ``raster_fwdbwd_mpix_per_s``: the renderer's
   forward, and forward and backward, at 13 views of 256² (icosphere-4);
 * ``render_fwdbwd_ms_ablate_{none,aabwd,rbwd,scatter}``: the fused pipe's
@@ -26,10 +27,9 @@ them.  In order:
   the reference's 31.6 it/s.
 
 Every time is the host clock around work that ends in
-``torch.cuda.synchronize()``.  Not here yet: the CG row (``bench.py:45``)
-and the sharded-CG lines (``bench.py:279-325``), which wait for the CG and
-sharding slices (ROADMAP.md Queue 1, items 3 and 5).  A failing benchmark
-stops the run with a non-zero exit.
+``torch.cuda.synchronize()``.  Not here yet: the sharded-CG lines
+(``bench.py:279-325``), which wait for the sharding slice (ROADMAP.md
+Queue 1, item 5).  A failing benchmark stops the run with a non-zero exit.
 """
 from __future__ import annotations
 
@@ -110,15 +110,17 @@ def _source(scene, renderer):
 
 
 def bench_solve(device=None):
-    """One differentiable solve of the ``"Cholesky"`` solver, chained as
-    ``x ← solve(0.999 x + 0.001 u)``: 50 solves (10 past 100k verts)."""
+    """One differentiable solve, chained as ``x ← solve(0.999 x + 0.001
+    u)``: 50 solves (10 past 100k verts); the ``"Cholesky"`` solver at
+    icosphere-4, 6 and 7, ``"CG"`` at 7."""
     dev = resolve_device(device)
     out = []
-    for subdiv in (4, 6, 7):
+    for subdiv, method in ((4, "Cholesky"), (6, "Cholesky"), (7, "Cholesky"),
+                           (7, "CG")):
         v, f = icosphere(subdiv)
         n = v.shape[0]
         M = compute_matrix(v, f, lambda_=19.0, device=dev)
-        solver = get_solver(M, "Cholesky")
+        solver = get_solver(M, method)
         u = to_differential(M, torch.as_tensor(v, device=dev))
         iters = 50 if n < 100_000 else 10
         x = [u]

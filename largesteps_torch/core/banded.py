@@ -15,7 +15,9 @@ The blocks are assembled on the device from the COO values with
 ``index_put_``; the factor and each solve are Python loops over the nb
 blocks of (B, B) products, all in full float32 (TF32 off: the tier's
 ~2e-6 relative residual needs it).  At 163,842 vertices B = 768 and
-nb = 214, and ``inv(D')`` and ``L`` take about 505 MB each.
+nb = 214, and ``inv(D')`` and ``L`` take about 505 MB each.  With
+``refine=k`` a solve adds k passes of iterative refinement, each solving
+again for the residual ``b − M x`` (a COO matvec).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from .blocksp import rcm_permutation
-from .sparse import SparseCOO
+from .sparse import CooMatvec, SparseCOO
 
 __all__ = ["BandedSolver", "BandedUnsuitable"]
 
@@ -41,7 +43,7 @@ class BandedSolver:
 
     method = "Banded"
 
-    def __init__(self, M: SparseCOO, max_block: int = 2048):
+    def __init__(self, M: SparseCOO, refine: int = 0, max_block: int = 2048):
         from .solvers import full_fp32
 
         st = M.structure
@@ -55,7 +57,9 @@ class BandedSolver:
             raise BandedUnsuitable(
                 f"RCM bandwidth {bw} needs block {B} > max_block {max_block}")
         nb = max(1, _round_up(n, B) // B)
-        self.n, self.B, self.nb = n, B, nb
+        self.n, self.B, self.nb, self.refine = n, B, nb, int(refine)
+        # the residual's matvec, for the refinement passes
+        self._A = CooMatvec(M) if self.refine else None
 
         dev = M.vals.device
         idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
@@ -77,20 +81,26 @@ class BandedSolver:
         self.perm = idx(perm)
         self.inv_perm = idx(inv)
 
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """``M⁻¹ b`` for b of shape (n, k) or (n,)."""
+    def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
         from .solvers import full_fp32
 
-        squeeze = b.ndim == 1
-        if squeeze:
-            b = b[:, None]
         k = b.shape[1]
         bp = torch.zeros((self.nb * self.B, k), dtype=torch.float32,
                          device=b.device)
         bp[:self.n] = b[self.perm]
         with full_fp32():
             x = _solve_blocks(self.invDp, self.L, bp.view(self.nb, self.B, k))
-        x = x.view(-1, k)[:self.n][self.inv_perm]
+        return x.view(-1, k)[:self.n][self.inv_perm]
+
+    def solve(self, b: torch.Tensor, x0=None) -> torch.Tensor:
+        """``M⁻¹ b`` for b of shape (n, k) or (n,); ``x0`` is ignored
+        (direct)."""
+        squeeze = b.ndim == 1
+        if squeeze:
+            b = b[:, None]
+        x = self._solve_once(b)
+        for _ in range(self.refine):
+            x = x + self._solve_once(b - self._A.matvec(x))
         return x[:, 0] if squeeze else x
 
 

@@ -1,15 +1,18 @@
 """Differential parameterization: u = M v and its cached inverse.
 
 Port of ``largesteps_tpu/core/parameterize.py``.  One solver is cached per
-matrix structure: the key is the identity of the ``CooStructure`` and a
-weakref on it drops the entry when the structure goes (a remesh makes a new
-one).
+matrix structure and method (``"Cholesky"``, ``"CholeskyHost"``, ``"CG"``,
+``"AMG"``): the key is the identity of the ``CooStructure`` and a weakref
+on it drops the entry when the structure goes (a remesh makes a new one),
+so no solver may hold the structure.
 """
 from __future__ import annotations
 
 import weakref
 
-from .solvers import CholeskyHostSolver, CholeskySolver, solve
+from .multigrid import MultigridSolver
+from .solvers import (CholeskyHostSolver, CholeskySolver,
+                      ConjugateGradientSolver, solve)
 from .sparse import SparseCOO, coo_matvec
 
 __all__ = ["to_differential", "from_differential", "clear_cache",
@@ -44,16 +47,18 @@ def get_solver(M: SparseCOO, method: str = "Cholesky"):
         slv = CholeskySolver(M)
     elif method == "CholeskyHost":
         slv = CholeskyHostSolver(M)
-    elif method in ("CG", "AMG"):
-        raise NotImplementedError(
-            f"solver {method!r} is not ported yet (ROADMAP.md Queue 1, item "
-            f"3: CG and the AMG solvers)")
+    elif method == "CG":
+        slv = ConjugateGradientSolver(M)
+    elif method == "AMG":
+        slv = MultigridSolver(M)
     else:
         raise ValueError(f"Unknown solver type '{method}'.")
     _cache_put(key, slv, M.structure)
     return slv
 
 
-def from_differential(M: SparseCOO, u, method: str = "Cholesky"):
-    """v = M⁻¹ u, differentiable, with the solver cached per structure."""
-    return solve(get_solver(M, method), u)
+def from_differential(M: SparseCOO, u, method: str = "Cholesky",
+                      guess_fwd=None, guess_bwd=None):
+    """v = M⁻¹ u, differentiable, with the solver cached per structure; the
+    guesses warm-start the iterative solvers' forward and backward solves."""
+    return solve(get_solver(M, method), u, guess_fwd, guess_bwd)

@@ -4,7 +4,9 @@ Port of ``largesteps_tpu/core/sparse.py``.  A matrix is a host-built static
 structure (:class:`CooStructure`, numpy index arrays made once per topology
 epoch, duplicates coalesced through a precomputed ``slot`` map) plus a value
 tensor on the device.  The matvec is ``index_add_`` of ``vals * x[cols]``
-into ``rows``.
+into ``rows``.  :class:`CooMatvec` is the same product without the
+structure object, for solvers that keep a matrix past its epoch's lifetime
+in the solver cache.
 """
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import dataclasses
 import numpy as np
 import torch
 
-__all__ = ["CooStructure", "SparseCOO", "from_coo", "coo_matvec"]
+__all__ = ["CooStructure", "SparseCOO", "CooMatvec", "from_coo",
+           "coo_matvec"]
 
 
 class CooStructure:
@@ -99,6 +102,25 @@ class SparseCOO:
             self.vals
         return out
 
+    def transpose(self) -> "SparseCOO":
+        st = self.structure
+        st_t = CooStructure(st.cols, st.rows, self.shape[::-1])
+        # the values in the transposed (sorted) order
+        lin_t = st.cols.astype(np.int64) * self.shape[0] + st.rows
+        order = np.argsort(lin_t, kind="stable")
+        return SparseCOO(st_t, self.vals[torch.as_tensor(order,
+                                                         device=self.device)])
+
+    def scale(self, s) -> "SparseCOO":
+        return SparseCOO(self.structure, self.vals * s)
+
+    def diagonal(self) -> torch.Tensor:
+        """The (n,) diagonal, 0 where the structure has no diagonal entry."""
+        if self.structure.diag_slots is None:
+            raise ValueError("not square")
+        ds = self.structure.index("diag_slots", self.device)
+        return torch.where(ds < 0, 0.0, self.vals[ds.clamp(min=0)])
+
     def add_scaled_identity(self, diag_scale, self_scale=1.0) -> "SparseCOO":
         """``self_scale * A + diag_scale * I`` (the structure must hold the
         full diagonal, which mesh Laplacians always do)."""
@@ -116,13 +138,35 @@ def from_coo(rows, cols, raw_vals: torch.Tensor, shape) -> SparseCOO:
     return SparseCOO(st, st.coalesce_values(raw_vals))
 
 
-def coo_matvec(A: SparseCOO, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for dense x of shape (n,) or (n, k)."""
+def _matvec(rows, cols, vals, n_rows, x):
     squeeze = x.ndim == 1
     if squeeze:
         x = x[:, None]
-    st = A.structure
-    rows, cols = st.index("rows", x.device), st.index("cols", x.device)
-    y = torch.zeros((A.shape[0], x.shape[1]), dtype=x.dtype, device=x.device)
-    y = y.index_add(0, rows, A.vals[:, None] * x[cols])
+    y = torch.zeros((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
+    y = y.index_add(0, rows, vals[:, None] * x[cols])
     return y[:, 0] if squeeze else y
+
+
+def coo_matvec(A: SparseCOO, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` for dense x of shape (n,) or (n, k)."""
+    st = A.structure
+    return _matvec(st.index("rows", x.device), st.index("cols", x.device),
+                   A.vals, A.shape[0], x)
+
+
+class CooMatvec:
+    """``A @ x`` of a SparseCOO that keeps only its device index tensors and
+    (detached) values, never its :class:`CooStructure`.  The solver cache
+    (``core/parameterize.py``) drops a solver when the structure it is keyed
+    on goes; a solver that held the structure would keep it, and itself,
+    alive for good."""
+
+    def __init__(self, A: SparseCOO):
+        dev = A.device
+        self.rows = A.structure.index("rows", dev)
+        self.cols = A.structure.index("cols", dev)
+        self.vals = A.vals.detach()
+        self.shape = A.shape
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return _matvec(self.rows, self.cols, self.vals, self.shape[0], x)

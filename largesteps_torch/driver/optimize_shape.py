@@ -20,6 +20,13 @@ displacement, which the host reads only once the step has run).  At most
 
 ``scene`` is a scene dict or the path of a scene XML file.  The optimizer
 is AdamUniform, plain Adam or a callable (see :func:`_make_optimizer`).
+``solver`` is ``"Cholesky"`` (dense inverse, banded or block-AMG by size
+and bandwidth), ``"CholeskyHost"``, ``"CG"`` or ``"AMG"``.  The iterative
+ones are warm-started as the JAX driver does it: a step's forward solve
+from the last step's solved vertices, its backward solve from the last
+step's gradient in u; at an epoch's start (and on resume) from the epoch's
+source vertices and from zero.  ``prof["solve_iters"]`` holds each step's
+(forward, backward) iteration counts.
 
 ``remesh`` schedules Botsch-Kobbelt remeshes: an int ≥ 0 is one remesh at
 that step (0: before the first), a list is a schedule taken in order.  At a
@@ -45,6 +52,8 @@ import torch
 from .._device import resolve_device
 from ..core.geometry import compute_matrix, laplacian_uniform
 from ..core.optimize import Adam, AdamUniform
+from ..core.banded import BandedSolver
+from ..core.multigrid import describe
 from ..core.parameterize import get_solver, to_differential
 from ..core.solvers import solve
 from ..core.sparse import coo_matvec
@@ -425,21 +434,30 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
 
 def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
     """One optimizer step.  Returns device tensors: ((image loss, logged
-    bilaplacian magnitude), the solved vertices of this step's forward, and
-    on the large-F path the largest screen displacement (px) of a rendered
-    vertex since the bins were made (0 elsewhere))."""
+    bilaplacian magnitude), the solved vertices of this step's forward, on
+    the large-F path the largest screen displacement (px) of a rendered
+    vertex since the bins were made (0 elsewhere), and an iterative
+    solver's (forward, backward) iteration counts (None for a direct one)).
+    The solves' warm starts begin at the epoch's source vertices and zero."""
     dev = renderer.device
     dup = torch.as_tensor(st.duplicate_idx.astype(np.int64), device=dev)
     f_unique = torch.as_tensor(st.f_unique.astype(np.int64), device=dev)
     reg = float(p["reg"])
     l1 = p["loss"] == "l1"
     zero = torch.zeros((), device=dev)
+    v0 = torch.as_tensor(st.v_unique, dtype=torch.float32, device=dev)
+    guess = {"fwd": v0, "bwd": torch.zeros_like(v0)}
 
     def step():
         optimizer.zero_grad(set_to_none=True)
+        iters = None
         with _span("solve"):
-            v_unique = solve(st.solver, theta["u"]) if p["smooth"] \
-                else theta["u"]
+            if p["smooth"]:
+                v_unique = solve(st.solver, theta["u"], guess["fwd"],
+                                 guess["bwd"])
+                iters = getattr(st.solver, "iters", None)
+            else:
+                v_unique = theta["u"]
         with _span("normals"):
             fn = compute_face_normals(v_unique, f_unique)
             n_opt = compute_vertex_normals(v_unique, f_unique, fn)[dup]
@@ -458,6 +476,12 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
             loss = im_loss + reg * reg_loss
         with _span("backward"):
             loss.backward()
+        if iters is not None:
+            iters = torch.stack([iters, st.solver.iters])
+        if p["smooth"]:
+            # the next step's warm starts: this step's solutions
+            guess["fwd"] = v_unique.detach()
+            guess["bwd"] = theta["u"].grad
         with _span("optimizer"):
             if not p["use_tr"]:
                 theta["tr"].grad = torch.zeros_like(theta["tr"])
@@ -473,7 +497,8 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
         v_out = v_unique.detach() if p["smooth"] \
             else v_unique.detach().clone()
         # always log the bilaplacian magnitude, like reference main.py:200
-        return (im_loss.detach(), Lv.detach().square().mean()), v_out, disp
+        return ((im_loss.detach(), Lv.detach().square().mean()), v_out, disp,
+                iters)
 
     return step
 
@@ -497,13 +522,20 @@ def _fresh_theta(st, p, dev, tr=None):
 
 
 def _solver_info(st):
-    """The epoch's solver tier and, for the banded tier, its block."""
+    """The epoch's solver tier; for the banded tier its block and blocks,
+    for the AMG tiers the hierarchy's rows a level, blocks a level and
+    bytes (:func:`core.multigrid.describe`)."""
     if st.solver is None:
         return None
     big = getattr(st.solver, "_big", None)
-    return {"tier": st.solver.tier,
-            "block": None if big is None else big.B,
-            "blocks": None if big is None else big.nb}
+    banded = isinstance(big, BandedSolver)
+    info = {"tier": st.solver.tier, "block": big.B if banded else None,
+            "blocks": big.nb if banded else None}
+    if info["tier"] == "amg":
+        info.update(describe(st.solver.h))
+    elif info["tier"] == "blockamg":
+        info.update(describe(big._mg.h))
+    return info
 
 
 def _pipe(renderer, st, cap):
@@ -684,6 +716,7 @@ def optimize_shape(scene, params=None, device=None):
     rebins = _Rebins(st, p, renderer, theta, start_it, prof)
     v_last = None               # solved vertices of the last step
     loss_log = []
+    iter_log = []               # an iterative solver's counts a step
     t0 = time.perf_counter()
     t = t0
     while (steps > 0 and it < steps) or (steps < 0 and (t - t0) < opt_time):
@@ -724,12 +757,14 @@ def optimize_shape(scene, params=None, device=None):
             remesh_it = remesh_schedule.pop(0) if remesh_schedule else -1
         rebins.before(it, v_last)
         t_st = time.perf_counter()
-        losses, v_last, disp = step()
+        losses, v_last, disp, iters = step()
         rebins.after(disp)
         if it == start_it:
             _sync(dev)
             prof["first_step_s"] = time.perf_counter() - t_st
         loss_log.append(torch.stack(losses))
+        if iters is not None:
+            iter_log.append(iters)
         if p["nan_check_every"] and (it + 1) % int(p["nan_check_every"]) == 0:
             # both scalars: NaN vertices render as background, leaving the
             # image loss finite while the bilaplacian magnitude goes NaN
@@ -766,5 +801,7 @@ def optimize_shape(scene, params=None, device=None):
     prof["raster_chunk"] = renderer.chunk
     if st.solver is not None:
         prof["solver"] = _solver_info(st)
+    if iter_log:
+        prof["solve_iters"] = torch.stack(iter_log).cpu().numpy()
     result["prof"] = prof
     return result

@@ -132,7 +132,7 @@ def profile_main_path(steps: int = 10, warmup: int = 5, trace_dir=None,
         nonlocal v_last
         for it in its:
             rebins.before(it, v_last)
-            _, v_last, disp = run.step()
+            _, v_last, disp, _ = run.step()
             rebins.after(disp)
 
     loop(range(warmup))

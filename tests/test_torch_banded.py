@@ -26,7 +26,9 @@ from largesteps_tpu.ops import icosphere
 from largesteps_torch.core.banded import BandedSolver, BandedUnsuitable
 from largesteps_torch.core.blocksp import rcm_permutation
 from largesteps_torch.core.geometry import compute_matrix
-from largesteps_torch.core.solvers import CholeskySolver, solve
+from largesteps_torch.core import solvers
+from largesteps_torch.core.solvers import (BlockAmgSolver, CholeskySolver,
+                                           solve)
 
 T = lambda a: torch.as_tensor(np.array(a))
 N = lambda a: np.asarray(a.detach() if isinstance(a, torch.Tensor) else a)
@@ -87,10 +89,11 @@ def test_banded_solve_gradient_matches_jax(system):
     assert _rel(N(u.grad), np.asarray(gj)) < 1e-5
 
 
-def test_banded_rejects_pathological_bandwidth():
+def test_banded_rejects_pathological_bandwidth(monkeypatch):
     """A random triangulation has Ω(n) bandwidth in every ordering: both
-    packages refuse it, and the port's CholeskySolver names the block-AMG
-    item it would need."""
+    packages' banded tiers refuse it, and the port's CholeskySolver takes
+    the block-AMG tier instead, as JAX's does (recorded here, not built:
+    its blocked fine level would hold 5.4 GB of blocks)."""
     rng = np.random.default_rng(0)
     n = 40_962
     f = rng.integers(0, n, size=(2 * n, 3), dtype=np.int32)
@@ -101,5 +104,13 @@ def test_banded_rejects_pathological_bandwidth():
     Mt = compute_matrix(v, f, lambda_=19.0, device="cpu")
     with pytest.raises(BandedUnsuitable):
         BandedSolver(Mt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CholeskySolver(Mt)
+    built = []
+
+    class Recorded(BlockAmgSolver):
+        def __init__(self, M, tol):
+            built.append((M, tol))
+
+    monkeypatch.setattr(solvers, "BlockAmgSolver", Recorded)
+    slv = CholeskySolver(Mt)
+    assert slv.tier == "blockamg"
+    assert len(built) == 1 and built[0][0] is Mt and built[0][1] == 1e-6

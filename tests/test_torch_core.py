@@ -126,20 +126,24 @@ def test_solver_cached_per_structure(mesh):
 
 @pytest.mark.parametrize("method", ["CG", "AMG"])
 def test_unported_solvers_raise(mesh, method):
+    """The iterative solvers, once unported, build behind ``get_solver``
+    and solve the round trip to JAX's bar (5e-4)."""
     v, f = mesh
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_solver(compute_matrix(v, f, lambda_=19.0, device="cpu"), method)
+    M = compute_matrix(v, f, lambda_=19.0, device="cpu")
+    slv = get_solver(M, method)
+    assert slv.tier == method.lower()
+    x = from_differential(M, to_differential(M, T(v)), method)
+    assert np.abs(N(x) - v).max() < 5e-4
 
 
 def test_dense_limit_raises(mesh):
     """Past ``dense_limit`` the banded tier runs; a bandwidth it refuses
-    (here: past a lowered ``max_block``) raises, naming the block-AMG
-    item, rather than falling back."""
+    (here: past a lowered ``max_block``) takes the block-AMG tier, as in
+    the JAX package."""
     v, f = mesh
     M = compute_matrix(v, f, lambda_=19.0, device="cpu")
     assert CholeskySolver(M, dense_limit=4).tier == "banded"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CholeskySolver(M, dense_limit=4, max_block=64)
+    assert CholeskySolver(M, dense_limit=4, max_block=64).tier == "blockamg"
 
 
 # each port optimizer beside its JAX transformation, and the leaves of the

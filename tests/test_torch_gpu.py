@@ -53,6 +53,9 @@ cotangents from a numpy seed.
   off, so both remesh the source mesh itself) on the card against the same
   run on the CPU, through the tile kernels; the host Cholesky solver on
   CUDA tensors against the dense inverse.
+* The iterative solvers: CG, a V-cycle, AMG-PCG, the dense-block matvec
+  and the block-AMG solve at icosphere-4 and -5, and the cotangent
+  Laplacian with its gradient, on the card against the CPU.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
@@ -62,7 +65,10 @@ probe_tile's sums); probe_tile's fields exact; bins exact; the banded solve
 1e-5 relative; pipe and dense images 1e-5 absolute and gradients 1e-4 ×
 max|g| (the projection and the glue run as PyTorch's CUDA kernels); the
 remeshed run's topology exact and its losses 1e-4 relative; the host
-solver 1e-5 × max|x| (a float64 factor against a float32 inverse).
+solver 1e-5 × max|x| (a float64 factor against a float32 inverse); the
+iterative solves 1e-5 absolute (their tolerances bound the error there),
+the V-cycle, the dense-block matvec and the cotangent Laplacian 1e-5 × the
+largest entry.
 """
 import numpy as np
 import pytest
@@ -844,3 +850,75 @@ def test_gpu_cholesky_host_solver():
     (xh, gh), (xd, gd) = out
     assert _max_abs(xh, xd) < 1e-5 * float(xd.abs().max())
     assert _max_abs(gh, gd) < 1e-5 * float(gd.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("subdiv", [4, 5])
+def test_gpu_iterative_solvers_match_cpu(subdiv):
+    """icosphere-4 and -5 (2,562 and 10,242 verts), λ = 19, u = M v: CG,
+    one V-cycle of a three-level hierarchy, AMG-PCG, the dense-block matvec
+    (RCM order, padded) and the block-AMG solve on the card against the same
+    on the CPU.  CG's and the PCG solves' x within 1e-5 of the CPU's and 5e-4
+    of v; the V-cycle and the matvec 1e-5 × their largest entry (sums in
+    another order)."""
+    from largesteps_torch.core import multigrid as mg
+    from largesteps_torch.core.blocksp import BlockedOperator
+    from largesteps_torch.core.geometry import compute_matrix
+    from largesteps_torch.core.parameterize import to_differential
+    from largesteps_torch.core.solvers import (BlockAmgSolver,
+                                               ConjugateGradientSolver)
+    from largesteps_torch.ops.shapes import icosphere
+    dev = _card()
+    v, f = icosphere(subdiv)
+    r = np.random.default_rng(subdiv).normal(size=(len(v), 3)).astype(
+        np.float32)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        M = compute_matrix(v.astype(np.float32), f, lambda_=19.0, device=d)
+        u = to_differential(M, torch.as_tensor(v, device=d))
+        h = mg.build_hierarchy(M, coarse_limit=subdiv * 40)
+        bamg = BlockAmgSolver(M)
+        fine = bamg._mg.h.levels[0].op
+        xp = torch.zeros((bamg.n_pad, 3), device=d)
+        xp[:bamg.n] = torch.as_tensor(r, device=d)[bamg.perm]
+        out[d.type] = {
+            "cg": ConjugateGradientSolver(M).solve(u),
+            "vcycle": mg.vcycle(h, torch.as_tensor(r, device=d)),
+            "amg_pcg": mg.amg_pcg_solve(h, u),
+            "matvec": fine.matvec(xp),
+            "blockamg": bamg.solve(u),
+        }
+        assert len(h.levels) >= 3
+        assert isinstance(fine, BlockedOperator) == (subdiv == 5)
+    for k, want in out["cpu"].items():
+        got = out["cuda"][k].cpu()
+        if k in ("vcycle", "matvec"):
+            assert _max_abs(got, want) <= 1e-5 * float(want.abs().max()), k
+        else:
+            assert _max_abs(got, want) <= 1e-5, k
+            assert float((got - torch.as_tensor(v)).abs().max()) < 5e-4, k
+
+
+@pytest.mark.gpu
+def test_gpu_laplacian_cot_matches_cpu():
+    """icosphere-4 with seeded radial bumps: the cotangent Laplacian's
+    values, ``compute_matrix(cotan=True)``'s and the gradient in the
+    vertices of Σ w ⊙ (L_cot v) on the card against the CPU, 1e-5 × the
+    largest entry."""
+    from largesteps_torch.core.geometry import compute_matrix, laplacian_cot
+    from largesteps_torch.core.sparse import coo_matvec
+    from largesteps_torch.ops.shapes import icosphere
+    dev = _card()
+    v, f = icosphere(4)
+    rng = np.random.default_rng(5)
+    v = (v * (1.0 + 0.1 * rng.uniform(size=(len(v), 1)))).astype(np.float32)
+    w = rng.normal(size=v.shape).astype(np.float32)
+    out = {}
+    for d in (torch.device("cpu"), dev):
+        vt = torch.as_tensor(v, device=d).requires_grad_(True)
+        L = laplacian_cot(vt, f)
+        M = compute_matrix(vt, f, alpha=0.95, cotan=True)
+        (torch.as_tensor(w, device=d) * coo_matvec(L, vt)).sum().backward()
+        out[d.type] = (L.vals.detach(), M.vals.detach(), vt.grad)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert _max_abs(got.cpu(), want) <= 1e-5 * float(want.abs().max())

@@ -168,10 +168,9 @@ def test_port_checkpoint_resumes_in_port(scene, tmp_path):
     np.testing.assert_allclose(second["v_final"], both["v_final"], atol=1e-6)
 
 
-@pytest.mark.parametrize("params", [{"solver": "AMG"}, {"sharding": {"dp": 2}},
+@pytest.mark.parametrize("params", [{"sharding": {"dp": 2}},
                                     {"host_bin_faces": 100,   # row-sharded
-                                     "sharding": {"dp": 1, "sp": 2}},
-                                    {"solver": "CG"}])
+                                     "sharding": {"dp": 1, "sp": 2}}])
 def test_unported_driver_options_raise(scene, params):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         optimize_shape(scene, {"steps": 1, **params}, device="cpu")
