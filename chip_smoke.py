@@ -35,12 +35,18 @@ launches), the iterative solvers (``solvers``: 20 main-path steps under
 ``"CG"`` beside ``"Cholesky"``; at nefertiti's matrix the block-AMG tier,
 its dense-block matvec and CG against the banded tier; 20 steps of the
 teaser's ``ours`` leg under ``"AMG"``; the cotangent Laplacian and its
-gradient on the card against the CPU) and the port's benchmark
-(``bench``: the functions of ``largesteps_torch.benchmarks.bench``, the
-nefertiti line at 10 steps), the tile kernels' launches counted around
-each.  Prints one JSON line per
-phase, then the kernel table, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without the
+gradient on the card against the CPU), sharding (``sharding``: the four
+tile kernels in their row-shard mode against their plain versions; ranks
+of ``torch.distributed`` sharing the card over gloo, spawned by
+``largesteps_torch.parallel.distributed.launch``: sharded renders at sp = 2
+and 4 against the unsharded one, and three driver legs, the main path
+under ``"CG"``, the viewpoints figure's ``views_16_ours`` and the teaser's
+``ours`` at nefertiti, beside their unsharded runs; one NCCL rank) and the
+port's benchmark (``bench``: the functions of
+``largesteps_torch.benchmarks.bench``, the nefertiti line at 10 steps, the
+sharded-CG lines), the tile kernels' launches counted around each.
+Prints one JSON line per phase, then the kernel table, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without the
 ``ok`` line, if there is no CUDA device or any phase fails.  Imports
 neither jax nor largesteps_tpu.
 """
@@ -759,7 +765,7 @@ def probe_cases(kinds=("onehot_scatter", "traffic", "probe_tile")):
         from largesteps_torch.render.pipeline import (_backward_kernels,
                                                       face_ids, face_sums)
         pipe = SimpleNamespace(resolution=m["res"], shading=True, boost=3.0,
-                               ablate="")
+                               ablate="", row_shards=1, row0=0)
         cov = (m["fid"] > 0)[..., None]
         table18, _ = _backward_kernels(pipe, m["rbb"], m["counts"],
                                        m["slot"], m["fid"], m["z"],
@@ -1536,6 +1542,327 @@ def phase_solvers(card):
     return passed, launches
 
 
+# ---------------------------------------------------------------------------
+# sharding: ranks of torch.distributed on the card
+# ---------------------------------------------------------------------------
+
+SHARD_LEG_STEPS = {"main_path": 20, "viewpoints": 20, "teaser": 10}
+# figures/viewpoints/generate_data.py:7-21, the views_16_ours leg
+VIEWPOINTS_PARAMS = {"boost": 3, "step_size": 1e-2, "loss": "l1",
+                     "alpha": 0.95, "smooth": True,
+                     "optimizer": "AdamUniform"}
+
+
+def _shard_scene(leg):
+    from largesteps_torch.figures.common import SCENES
+    from largesteps_torch.io.synth import make_scene
+    from largesteps_torch.profiling import large_f_scene, main_path_scene
+    if leg == "main_path":
+        return main_path_scene(seed=SEED)
+    if leg == "teaser":
+        return large_f_scene(seed=SEED)
+    return make_scene(**dict(SCENES["bunny"], n_views=16))
+
+
+def _shard_params(leg):
+    from largesteps_torch.profiling import LARGE_F_PARAMS, MAIN_PATH_PARAMS
+    p = {"main_path": {**MAIN_PATH_PARAMS, "solver": "CG"},
+         "teaser": LARGE_F_PARAMS, "viewpoints": VIEWPOINTS_PARAMS}[leg]
+    return {**p, "steps": SHARD_LEG_STEPS[leg]}
+
+
+def _shard_render(sharding):
+    """One forward and backward of the main path's source mesh on the card
+    (13 views at 256²), sharded by ``sharding`` (None: unsharded): the
+    whole images, the face ids of the forward raster, and the gradients of
+    v and n (summed over the ranks)."""
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    from largesteps_torch.parallel.sharding import (gather_images,
+                                                    make_mesh,
+                                                    shard_renderer)
+    from largesteps_torch.render import kernels as K
+    from largesteps_torch.render.camera import project
+    from largesteps_torch.render.pipeline import setup_and_bin, TILE_H
+    from largesteps_torch.render.renderer import Renderer, Topology
+    from largesteps_torch.render.sh import sh_eval
+    dev = torch.device("cuda")
+    scene = _shard_scene("main_path")
+    r = Renderer(scene, shading=True, boost=3, device=dev)
+    if sharding is not None:
+        shard_renderer(r, make_mesh(sharding["dp"], sharding["sp"]))
+    f = scene["mesh-source"]["faces"]
+    topo = Topology(f)
+    v = torch.tensor(scene["mesh-source"]["vertices"], device=dev,
+                     requires_grad=True)
+    with torch.no_grad():
+        n0 = compute_vertex_normals(v, f, compute_face_normals(v, f))
+    n = n0.clone().requires_grad_(True)
+    r.check_overflow(v.detach(), topo)
+    img = r.render(v, n, topo)
+    w = np.random.default_rng(SEED).normal(size=(13, 256, 256, 4))
+    if r.mesh is not None:
+        w = w[r.cam_slice, r.row_slice]
+    (img * torch.as_tensor(w.astype(np.float32), device=dev)).sum() \
+        .backward()
+    with torch.no_grad():           # the rank's face ids, as the pipe's
+        faces = torch.as_tensor(f.astype(np.int64), device=dev)
+        rfb, _, _, counts = setup_and_bin(
+            project(v, r.mvps), faces, sh_eval(r.sh_M, n) / np.pi,
+            torch.as_tensor(topo.opp.astype(np.int64), device=dev), 256,
+            256, r.bin_cap, (r.row_index * 8 // r.row_shards,
+                             8 // r.row_shards))
+        fid = K.raster_fwd(rfb, counts, r.res,
+                           r.row_index * 8 // r.row_shards)[3]
+    img, fid = img.detach(), fid[..., None]
+    if r.mesh is not None:
+        img, fid = gather_images(img, r), gather_images(fid, r)
+    else:
+        img, fid = img.cpu().numpy(), fid.cpu().numpy()
+    return {"img": img, "fid": fid[..., 0], "gv": v.grad.cpu().numpy(),
+            "gn": n.grad.cpu().numpy()}
+
+
+def _shard_leg(leg, sharding, transport=False):
+    """One driver leg on this rank: losses, final vertices, it/s, peak
+    bytes, the tile kernels' launches, rebins; with ``transport`` the
+    seconds the collectives took (each behind a device sync, so that the
+    wait for the step's kernels is not counted: the run is slower)."""
+    import torch.distributed as dist
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.parallel import distributed as pdist
+    from largesteps_torch.render import kernels as K
+    spent = {"s": 0.0, "calls": 0}
+    undo = []
+    if transport:
+        def timed(mod, name):
+            fn = getattr(mod, name)
+
+            def wrapper(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                spent["s"] += time.perf_counter() - t0
+                spent["calls"] += 1
+                return out
+            setattr(mod, name, wrapper)
+            undo.append((mod, name, fn))
+        for name in ("all_reduce", "all_gather", "broadcast"):
+            timed(dist, name)
+        timed(pdist, "ppermute")
+    params = _shard_params(leg)
+    if transport:
+        params["steps"] = 5
+    if sharding is not None:
+        params["sharding"] = sharding
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    try:
+        res = optimize_shape(_shard_scene(leg), params, device="cuda")
+    finally:
+        for mod, name, fn in undo:
+            setattr(mod, name, fn)
+    prof = res["prof"]
+    return {"losses": res["losses"][:, 0], "v_final": res["v_final"],
+            "it_per_s": _steady(res), "wall_s": res["wall_time"],
+            "first_step_s": prof["first_step_s"], "setup_s": prof["setup_s"],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": dict(K.LAUNCHES),
+            "rebin_steps": prof.get("rebin_steps", []),
+            "rebin_n": prof["rebin_n"], "sharding": prof.get("sharding"),
+            "solver": prof.get("solver", {}).get("tier"),
+            "transport_s": spent["s"] if transport else None,
+            "transport_calls": spent["calls"] if transport else None}
+
+
+def _shard_rank(rank, world, jobs):
+    """A rank of the ``sharding`` phase: each job (name, kind, args) in
+    order; kinds ``render`` (:func:`_shard_render`) and ``leg``
+    (:func:`_shard_leg`)."""
+    import torch.distributed as dist
+    out = {"backend": dist.get_backend(),
+           "device": torch.cuda.current_device()}
+    for name, kind, args in jobs:
+        fn = _shard_render if kind == "render" else _shard_leg
+        out[name] = fn(*args)
+    return out
+
+
+def _halo_kernels(m, sp):
+    """The four kernels on row shards 1 and sp − 1 of the main path's
+    inputs (a shard with row0 > 0 and the last one), with the tile-row
+    offset and halo rows, against their plain versions on the card: ids
+    exact, images 1e-5, per-slot sums 1e-4 of the largest."""
+    from largesteps_torch.render import kernels as K
+    res, rfb, rbb, counts = m["res"], m["rfb"], m["rbb"], m["counts"]
+    fid, z, slot, comp, d_out, d_col = (m[k] for k in (
+        "fid", "z", "slot", "comp", "d_out", "d_col"))
+    H = res[0]
+    tyl, hl = H // 32 // sp, H // sp
+    out = []
+    for s in sorted({1, sp - 1}):
+        rows, tiles = slice(s * hl, (s + 1) * hl), slice(s * tyl,
+                                                         (s + 1) * tyl)
+        nxt = rows.stop - 1 if s == sp - 1 else rows.stop
+        C = lambda a, sl: a[:, sl].contiguous()
+        halo = tuple(a[:, nxt].contiguous() for a in (fid, z, comp))
+        halo_b = halo + (d_out[:, nxt].contiguous(),)
+        r0 = s * tyl
+        zero = torch.zeros_like(C(fid, rows))
+        pl = (C(rbb, tiles), C(counts, tiles), C(fid, rows), C(z, rows),
+              C(comp, rows))
+        got = {"raster_fwd": K.raster_fwd(C(rfb, tiles), C(counts, tiles),
+                                          res, r0),
+               "aa_fwd": K.aa_fwd(*pl, res, r0, halo),
+               "raster_bwd": (K.raster_bwd(C(rbb, tiles), C(counts, tiles),
+                                           C(slot, rows), C(d_col, rows),
+                                           zero, zero, res, r0),),
+               "aa_bwd": K.aa_bwd(*pl, C(d_out, rows), res, r0, halo_b)}
+        want = {"raster_fwd": K.raster_fwd_plain(C(rfb, tiles),
+                                                 C(counts, tiles), res, r0),
+                "aa_fwd": K.aa_fwd_plain(*pl, res, r0, halo),
+                "raster_bwd": (K.raster_bwd_plain(
+                    C(rbb, tiles), C(counts, tiles), C(slot, rows),
+                    C(d_col, rows), zero, zero, res, r0),),
+                "aa_bwd": K.aa_bwd_plain(*pl, C(d_out, rows), res, r0,
+                                         halo_b)}
+        for name in got:
+            g, w = got[name], want[name]
+            errs = [max_abs(a, b) for a, b in zip(g, w)]
+            scale = [float(b.abs().max()) for b in w]
+            if name == "raster_fwd":
+                ok = errs[3] == 0.0 and errs[4] == 0.0 and max(errs) <= 1e-5
+            elif name == "raster_bwd":
+                ok = errs[0] <= 1e-4 * scale[0]
+            elif name == "aa_fwd":
+                ok = max(errs) <= 1e-5
+            else:       # d_colour, per-slot sums, the share row
+                ok = (errs[0] <= 1e-5 * scale[0]
+                      and errs[1] <= 1e-4 * scale[1]
+                      and errs[2] <= 1e-5 * max(scale[2], scale[0]))
+            out.append({"sp": sp, "shard": s, "row0": r0, "name": name,
+                        "passed": ok, "max_abs_err": errs})
+    return out
+
+
+def phase_sharding(card):
+    """Sharding on the card: (a) the four kernels in their row-shard mode
+    (tile-row offset, halo rows) against their plain versions at the main
+    path's inputs, sp = 2 and 4; (b) one forward and backward of the main
+    path's scene sharded ``{"dp": 1, "sp": 2}`` and ``{"dp": 1, "sp": 4}``
+    against the unsharded render on the card (ids exact, images 1e-5, the
+    summed vertex gradient 1e-4 × max|g|); (c) three driver legs, each
+    beside its unsharded run: the main path under ``"CG"`` (so
+    ``ShardedCGSolver``) at ``{"dp": 1, "sp": 2}``, 20 steps; the viewpoints
+    figure's ``views_16_ours`` leg at ``{"dp": 2, "sp": 2}``, 20 steps; the
+    teaser's ``ours`` leg at nefertiti at ``{"dp": 1, "sp": 2}``, 10 steps
+    (host bins sliced to rows, rebins decided together): the first loss
+    within 1e-4 relative of the unsharded run's, every loss finite and
+    falling and within 5e-2 relative, the final vertices the same bits on
+    every rank, a rebin in the teaser leg on the same steps on every rank;
+    (d) the main path sharded at 5 steps with its collectives timed
+    (transport share), and one NCCL rank (world size 1) on the card.  The
+    ranks share the card (gloo, host-staged halos): their it/s measure the
+    plumbing, not a multi-card speed-up."""
+    from largesteps_torch.parallel.distributed import launch
+    checks = {}
+    m = main_path_inputs()
+    halo = _halo_kernels(m, 2) + _halo_kernels(m, 4)
+    for h in halo:
+        emit({"phase": "sharding_kernel", **h, "card": card})
+    checks["halo_kernels"] = all(h["passed"] for h in halo)
+    halo_err = {k: max(max(h["max_abs_err"]) for h in halo if h["name"] == k)
+                for k in ("raster_fwd", "aa_fwd", "raster_bwd", "aa_bwd")}
+    del m
+    torch.cuda.empty_cache()
+
+    single = {"render": _shard_render(None)}
+    for leg in SHARD_LEG_STEPS:
+        single[leg] = _shard_leg(leg, None)
+        torch.cuda.empty_cache()
+    sp2 = {"dp": 1, "sp": 2}
+    runs = {}
+    t0 = time.perf_counter()
+    runs[2] = launch(_shard_rank, 2, device="cuda", timeout=400.0, args=(
+        [("render", "render", (sp2,)),
+         ("main_path", "leg", ("main_path", sp2)),
+         ("transport", "leg", ("main_path", sp2, True)),
+         ("teaser", "leg", ("teaser", sp2))],))
+    runs[4] = launch(_shard_rank, 4, device="cuda", timeout=300.0, args=(
+        [("render4", "render", ({"dp": 1, "sp": 4},)),
+         ("viewpoints", "leg", ("viewpoints", {"dp": 2, "sp": 2}))],))
+    runs[1] = launch(_shard_rank, 1, backend="nccl", device="cuda",
+                     timeout=200.0, args=(
+                         [("nccl", "leg", ("main_path", {"dp": 1}))],))
+    launch_s = time.perf_counter() - t0
+
+    ref = single["render"]
+    for world, name in ((2, "render"), (4, "render4")):
+        got = [r[name] for r in runs[world]]
+        e_img = max(float(np.abs(g["img"] - ref["img"]).max()) for g in got)
+        e_fid = max(float(np.abs(g["fid"] - ref["fid"]).max()) for g in got)
+        e_gv = max(float(np.abs(g["gv"] - ref["gv"]).max()) for g in got)
+        e_gn = max(float(np.abs(g["gn"] - ref["gn"]).max()) for g in got)
+        same = all(np.array_equal(g["gv"], got[0]["gv"]) for g in got)
+        checks[name] = (e_fid == 0.0 and e_img <= 1e-5 and same
+                        and e_gv <= 1e-4 * float(np.abs(ref["gv"]).max())
+                        and e_gn <= 1e-4 * float(np.abs(ref["gn"]).max()))
+        emit({"phase": "sharding_render", "ranks": world,
+              "passed": checks[name], "fid_err": e_fid, "img_err": e_img,
+              "gv_err": e_gv, "gv_max": float(np.abs(ref["gv"]).max()),
+              "gn_err": e_gn, "same_on_every_rank": same, "card": card})
+
+    launches = {}
+    for leg, world, sh in (("main_path", 2, sp2), ("teaser", 2, sp2),
+                           ("viewpoints", 4, {"dp": 2, "sp": 2}),
+                           ("nccl", 1, {"dp": 1})):
+        got = [r[leg] for r in runs[world]]
+        want = single["main_path" if leg == "nccl" else leg]
+        lw, lg = want["losses"], got[0]["losses"]
+        rel = (np.abs(lg - lw) / np.abs(lw)).tolist()
+        same = all(np.array_equal(g["v_final"], got[0]["v_final"])
+                   and np.array_equal(g["losses"], lg) for g in got)
+        rebins = [g["rebin_steps"] for g in got]
+        ok = (bool(np.isfinite(lg).all()) and lg[-1] < lg[0]
+              and rel[0] <= 1e-4 and max(rel) <= 5e-2 and same
+              and all(rb == rebins[0] for rb in rebins)
+              and all(n >= 1 for g in got for n in g["launches"].values()))
+        if leg == "teaser":
+            ok = ok and len(rebins[0]) >= 1
+        checks[leg] = ok
+        launches[leg] = [g["launches"] for g in got]
+        emit({"phase": "sharding_leg", "leg": leg, "passed": ok,
+              "sharding": sh, "ranks": world,
+              "backend": runs[world][0]["backend"],
+              "steps": len(lg), "loss_first": float(lg[0]),
+              "loss_last": float(lg[-1]), "max_rel_loss": max(rel),
+              "first_rel_loss": rel[0], "same_on_every_rank": same,
+              "it_per_s": [g["it_per_s"] for g in got],
+              "unsharded_it_per_s": want["it_per_s"],
+              "first_step_s": [g["first_step_s"] for g in got],
+              "setup_s": [g["setup_s"] for g in got],
+              "peak_bytes": [g["peak_bytes"] for g in got],
+              "unsharded_peak_bytes": want["peak_bytes"],
+              "solver": got[0]["solver"], "rebin_steps": rebins[0],
+              "layout": [g["sharding"] for g in got],
+              "launches": launches[leg], "card": card})
+    tr = [r["transport"] for r in runs[2]]
+    emit({"phase": "sharding_transport", "leg": "main_path", "steps": 5,
+          "ranks": 2, "backend": runs[2][0]["backend"],
+          "transport_s": [t["transport_s"] for t in tr],
+          "calls": [t["transport_calls"] for t in tr],
+          "wall_s": [t["wall_s"] for t in tr],
+          "share": [t["transport_s"] / t["wall_s"] for t in tr],
+          "card": card})
+    passed = all(checks.values())
+    emit({"phase": "sharding_summary", "passed": passed, "checks": checks,
+          "launch_s": launch_s, "card": card})
+    return passed, launches, halo_err
+
+
 def phase_bench(card):
     """``largesteps_torch.benchmarks.bench``'s functions as its ``main``
     runs them, the nefertiti line at 10 steps: their JSON lines, each
@@ -1547,7 +1874,7 @@ def phase_bench(card):
     lines = []
     for fn in (bench.bench_solve, bench.bench_raster, bench.bench_ablate,
                lambda: bench.bench_step_nefertiti(steps=10),
-               lambda: [bench.bench_step()]):
+               bench.bench_sharded_cg, lambda: [bench.bench_step()]):
         for line in fn():
             emit({"phase": "bench", **line})
             lines.append(line)
@@ -1557,10 +1884,12 @@ def phase_bench(card):
             *(f"render_fwdbwd_ms_ablate_{k}" for k in
               ("none", "aabwd", "rbwd", "scatter")),
             "opt_iters_per_s_163842v_sustained", "nefertiti_first_step_s",
-            "nefertiti_rebin_ms", "nefertiti_rebin_n", "opt_iters_per_s"]
+            "nefertiti_rebin_ms", "nefertiti_rebin_n", "cg_163842v_gpu1_ms",
+            "opt_iters_per_s"]
     solves = [n for n in names if n.startswith("from_differential_ms_")]
     passed = (all(n in names for n in want) and len(solves) == 4
               and "from_differential_ms_cg_163842v" in solves
+              and any(n.startswith("sharded_cg_163842v_gpu2") for n in names)
               and names[-1] == "opt_iters_per_s"
               and all(np.isfinite(line["value"]) for line in lines)
               and all(n >= 1 for n in launches.values()))
@@ -1588,6 +1917,7 @@ def main():
                       ("fit_quality", phase_fit_quality),
                       ("remesh", phase_remesh),
                       ("solvers", phase_solvers),
+                      ("sharding", phase_sharding),
                       ("bench", phase_bench)):
         t0 = time.perf_counter()
         try:
@@ -1605,6 +1935,7 @@ def main():
     q_ok, q_launches = results["fit_quality"] or (False, {})
     r_ok, r_launches = results["remesh"] or (False, {})
     s_ok, s_launches = results["solvers"] or (False, {})
+    sh_ok, sh_launches, sh_err = results["sharding"] or (False, {}, {})
     b_ok, b_launches = results["bench"] or (False, {})
     # the kernels were held at the run's shapes: its cap is theirs
     fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
@@ -1620,6 +1951,7 @@ def main():
                               ("fit_quality", q_ok),
                               ("remesh", r_ok),
                               ("solvers", s_ok),
+                              ("sharding", sh_ok),
                               ("bench", b_ok)) if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
@@ -1634,6 +1966,10 @@ def main():
         row["fit_quality_launches"] = q_launches[k]
         row["remesh_launches"] = r_launches[k]
         row["solvers_launches"] = s_launches[k]
+        # each sharded leg's launches, rank by rank
+        row["sharding_launches"] = {leg: [r[k] for r in ranks]
+                                    for leg, ranks in sh_launches.items()}
+        row["sharding_max_abs_err"] = sh_err[k]
         row["bench_launches"] = b_launches[k]
     # the micro-benchmarks' kernels: their own launches, no large-F run;
     # ptxas's line of the instantiation that ran at each shape

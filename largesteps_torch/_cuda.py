@@ -42,13 +42,17 @@ _F = ctypes.c_float
 # C signature (argtypes, restype) of every exported function; the kernel
 # ``name``'s launcher is ``ls_<name>`` and returns a cudaError_t
 _SIGNATURES = {
-    "ls_raster_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P], _I),
-    "ls_raster_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                       _F, _P], _I),
-    "ls_aa_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _F, _F, _P], _I),
-    "ls_aa_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _I, _I, _F, _F, _P], _I),
+    # (..., C, TY, TX, cap, H, W, row0, sxs, sys, stream): H the planes'
+    # rows, row0 their first tile row in the image
+    "ls_raster_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                      _I),
+    "ls_raster_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _F, _F, _P], _I),
+    # the antialias kernels' halo rows and share row follow the scratch
+    # (null without row shards): (..., C, TY, TX, cap, H, W, D, row0, sxs,
+    # sys, stream)
+    "ls_aa_fwd": ([_P] * 11 + [_I] * 8 + [_F, _F, _P], _I),
+    "ls_aa_bwd": ([_P] * 14 + [_I] * 8 + [_F, _F, _P], _I),
     # bytes of global scratch the antialias owner tables need, from
     # (tiles, cap); exported by aa_fwd's library, used by both kernels
     "ls_aa_scratch": ([_I, _I], ctypes.c_longlong),

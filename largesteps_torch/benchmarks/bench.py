@@ -21,15 +21,20 @@ them.  In order:
   ``nefertiti_rebin_ms``, ``nefertiti_rebin_n``: the driver at icosphere-7
   (327,680 faces) fitted to gourd-4, 13 views of 256², λ = 19, step 0.05,
   the driver's default rebin policy;
+* ``sharded_cg_163842v_<where>_ms`` beside ``cg_163842v_<one>_ms``: CG
+  (λ = 19, tol 1e-5, cold) at icosphere-7 with its matvec's nonzeros
+  sharded over 2 ranks (``parallel.tri_shard``), against one process;
+  ``<where>`` says where the ranks ran: ``gpu2shared`` for 2 ranks on one
+  card (gloo, host-staged), ``gpu2`` on two cards, ``cpu2`` on the CPU
+  (the JAX package's line says ``cpu8virt``);
 * last, ``opt_iters_per_s``: the hand-written ``bench_step`` (solve,
   normals, render, l2 loss, backward, AdamUniform at 0.03) on icosphere-4
   fitted to gourd-4, 3 warm-up and 50 timed steps, ``vs_baseline`` against
   the reference's 31.6 it/s.
 
 Every time is the host clock around work that ends in
-``torch.cuda.synchronize()``.  Not here yet: the sharded-CG lines
-(``bench.py:279-325``), which wait for the sharding slice (ROADMAP.md
-Queue 1, item 5).  A failing benchmark stops the run with a non-zero exit.
+``torch.cuda.synchronize()``.  A failing benchmark stops the run with a
+non-zero exit.
 """
 from __future__ import annotations
 
@@ -55,7 +60,8 @@ from ..render.renderer import Renderer, Topology
 from ..render.sh import sh_eval
 
 __all__ = ["bench_solve", "bench_raster", "bench_ablate",
-           "bench_step_nefertiti", "bench_step", "smi", "main",
+           "bench_step_nefertiti", "bench_sharded_cg", "bench_step", "smi",
+           "main",
            "REFERENCE_ITERS_PER_S"]
 
 REFERENCE_ITERS_PER_S = 31.6  # BASELINE.md: mean of the 6 comparison scenes
@@ -214,6 +220,52 @@ def bench_step_nefertiti(steps=40, device=None):
     ]
 
 
+def _cg_system(dev):
+    v, f = icosphere(7)
+    M = compute_matrix(v, f, lambda_=19.0, device=dev)
+    return M, to_differential(M, torch.as_tensor(v, device=dev))
+
+
+def _cg_ms(fn, dev):
+    """Milliseconds of one call of ``fn`` after a warm-up call."""
+    fn()
+    return _seconds(fn, 1, dev) * 1e3
+
+
+def _sharded_cg_rank(rank, world, device):
+    from ..parallel.distributed import global_mesh
+    from ..parallel.tri_shard import sharded_cg_solve
+    dev = torch.device(device)
+    M, u = _cg_system(dev)
+    mesh = global_mesh(1)
+    return _cg_ms(lambda: sharded_cg_solve(M, u, mesh, tol=1e-5), dev)
+
+
+def bench_sharded_cg(ranks=2, device=None):
+    """Edge-sharded CG (``parallel.tri_shard.sharded_cg_solve``) at
+    icosphere-7 over ``ranks`` ranks (the slowest rank's time), beside
+    ``core.solvers.cg_solve`` in this process.  On one card the ranks share
+    it and their halos go through host memory: the line tracks the sharded
+    solve's correctness and cost, not a multi-card speed-up."""
+    from ..core.solvers import cg_solve
+    from ..parallel.distributed import launch
+    dev = resolve_device(device)
+    M, u = _cg_system(dev)
+    one = _cg_ms(lambda: cg_solve(M, u, tol=1e-5), dev)
+    del M, u
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        cards = torch.cuda.device_count()
+        where = f"gpu{ranks}" + ("shared" if cards < ranks else "")
+    else:
+        where = f"cpu{ranks}"
+    ms = max(launch(_sharded_cg_rank, ranks, device=dev.type,
+                    args=(dev.type,), timeout=600.0))
+    return [_line(f"sharded_cg_163842v_{where}_ms", ms, "ms"),
+            _line(f"cg_163842v_{dev.type}1_ms".replace("cuda", "gpu"), one,
+                  "ms")]
+
+
 def bench_step(device=None):
     """The reference's equal-time workload as one hand-written step:
     solve → normals → render (13 views of 256², shaded, boost 3) → l2
@@ -264,7 +316,8 @@ def main(argv=None):
     if dev.type == "cuda":
         print(smi(), flush=True)
     lines = []
-    for fn in (bench_solve, bench_raster, bench_ablate, bench_step_nefertiti):
+    for fn in (bench_solve, bench_raster, bench_ablate, bench_step_nefertiti,
+               bench_sharded_cg):
         for line in fn(device=dev):
             print(json.dumps(line), flush=True)
             lines.append(line)

@@ -21,6 +21,9 @@
 //   global atomics (four a blending pair; a per-block shared table flushed
 //   at the end measured slower on the H100, since the tile's strips share
 //   the slots).
+// - Row shards: as aa_fwd.cu's, with the output cotangent's halo row; the
+//   endpoint gradients of a pair anchored at the last row go to this
+//   shard's slots, as the TPU kernel's per-tile sums do.
 // - Sliver guard, as pallas_core.py:1786: a non-finite endpoint contribution
 //   (a near-zero crossing denominator overflows 1/den²) is zeroed.
 #include "common.cuh"
@@ -37,12 +40,14 @@ template <int D>
 __device__ __forceinline__ void endpoint_grads(
     const ls::OwnerTable& tab, const ls::AaItem& q, int slot, int take,
     float t, const float* __restrict__ color, const float* __restrict__ dout,
-    float* ob) {
+    const ls::AaGrid& g, float* ob) {
   float c0[D], cn[D], d0[D], dn[D];
   ls::load_px<D>(color, q.p, c0);
-  ls::load_px<D>(color, q.pn, cn);
+  const ls::Px pc = ls::aa_nb_px(color, g.hcol, q);
+  ls::load_px<D>(pc.p, pc.i, cn);
   ls::load_px<D>(dout, q.p, d0);
-  ls::load_px<D>(dout, q.pn, dn);
+  const ls::Px pd = ls::aa_nb_px(dout, g.hdout, q);
+  ls::load_px<D>(pd.p, pd.i, dn);
   const bool lo = t < 0.5f;           // else t >= 0.5: the pair blends
   float dt = 0.0f;
 #pragma unroll
@@ -84,16 +89,17 @@ aa_bwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
   // phase 2: the crossings of the listed pairs; the endpoint gradients of
   // those anchored in the strip
   for (int k = threadIdx.x; k < sh.count; k += blockDim.x) {
-    const ls::AaItem q = ls::aa_item(sh.list[k], b, H, W, g.sxs, g.sys);
+    const ls::AaItem q = ls::aa_item(sh.list[k], b, g);
     const ls::OwnerTable tab = T.get(q.table);
     float t = 0.0f;
     int slot, take;
-    const bool act = ls::aa_pair(tab, fidp[q.p], zp[q.p], fidp[q.pn],
-                                 zp[q.pn], q.pax, q.pay, q.d_ex, q.d_ey, t,
-                                 slot, take);
+    const bool act = ls::aa_pair(tab, fidp[q.p], zp[q.p],
+                                 ls::aa_nb(fidp, g.hfid, q),
+                                 ls::aa_nb(zp, g.hz, q), q.pax, q.pay, q.d_ex,
+                                 q.d_ey, t, slot, take);
     if (act) sh.t[q.code] = t;
     if (act && q.table == 0 && q.r >= 0)
-      endpoint_grads<D>(tab, q, slot, take, t, color, dout, ob);
+      endpoint_grads<D>(tab, q, slot, take, t, color, dout, g, ob);
   }
   __syncthreads();
 
@@ -112,10 +118,17 @@ aa_bwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
     ls::load_px<D>(dout, p - x + min(x + 1, W - 1), dn);
 #pragma unroll
     for (int k = 0; k < D; ++k) o[k] = 0.0f - w.wa_h * d0[k] + w.wb_h * dn[k];
-    ls::load_px<D>(dout, ((size_t)b.c * H + min(y + 1, H - 1)) * W + x, dn);
+    const ls::Px pd = ls::aa_down(dout, g.hdout, b.c, y, x, H, W);
+    ls::load_px<D>(pd.p, pd.i, dn);
 #pragma unroll
     for (int k = 0; k < D; ++k)
       o[k] = (o[k] - w.wa_v * d0[k] + w.wb_v * dn[k]) + d0[k];
+    if (g.share != nullptr && y + 1 == H) {   // the next shard's row 0
+      float s[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) s[k] = w.wa_v * d0[k] - w.wb_v * dn[k];
+      ls::store_px<D>(g.share, (size_t)b.c * W + x, s);
+    }
     if (x > 0) ls::load_px<D>(dout, p - 1, dn);
 #pragma unroll
     for (int k = 0; k < D; ++k)
@@ -130,14 +143,18 @@ aa_bwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
 
 }  // namespace
 
-// D = 4 (shaded) or 3 (silhouette) colour channels; `scratch` as aa_fwd's
-// (ls_aa_scratch in aa_fwd.cu).
+// D = 4 (shaded) or 3 (silhouette) colour channels; `scratch`, the planes'
+// rows and the halo as aa_fwd's (ls_aa_scratch and ls_aa_fwd in aa_fwd.cu),
+// with the output cotangent's halo row hdout.
 extern "C" int ls_aa_bwd(const float* rec, const int* counts, const float* fid,
                          const float* z, const float* color, const float* dout,
-                         float* dcol, float* dslot, void* scratch, int C,
-                         int TY, int TX, int cap, int H, int W, int D,
+                         float* dcol, float* dslot, void* scratch,
+                         const float* hfid, const float* hz, const float* hcol,
+                         const float* hdout, float* share, int C, int TY,
+                         int TX, int cap, int H, int W, int D, int row0,
                          float sxs, float sys, void* stream) {
-  const ls::AaGrid g{nullptr, nullptr, TY, TX, cap, 0, H, W, sxs, sys};
+  const ls::AaGrid g{nullptr, nullptr, TY, TX, cap, 0, H, W, sxs, sys,
+                     row0, hfid, hz, hcol, hdout, share};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 3:

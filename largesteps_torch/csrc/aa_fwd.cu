@@ -30,6 +30,14 @@
 //   8-row strip), two pixels a thread (832 blocks at 13 views of 256²).
 // - Colour moves as one float4 a pixel when D = 4; no per-thread array is
 //   indexed at run time, so nothing lives on the stack.
+// - Row shards (pallas_core.py:_shift_up_halo, _shift_down_ch_halo): pixel
+//   centres are the image's (tile row + row0).  The down neighbours of the
+//   last row come from the halo rows, and the share that a pair anchored
+//   there gives its neighbour, which the TPU path's shift would carry onto
+//   the next shard, is written to a share row instead; the pair below row
+//   0 is not listed there (its anchor is the previous shard's), so the
+//   caller's add of that shard's share row completes row 0 in the plain
+//   version's order.
 #include "common.cuh"
 
 namespace {
@@ -48,10 +56,11 @@ aa_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
 
   // phase 2: the crossings of the listed pairs
   for (int k = threadIdx.x; k < sh.count; k += blockDim.x) {
-    const ls::AaItem q = ls::aa_item(sh.list[k], b, H, W, g.sxs, g.sys);
+    const ls::AaItem q = ls::aa_item(sh.list[k], b, g);
     float t = 0.0f;
     int slot, take;
-    if (ls::aa_pair(T.get(q.table), fidp[q.p], zp[q.p], fidp[q.pn], zp[q.pn],
+    if (ls::aa_pair(T.get(q.table), fidp[q.p], zp[q.p],
+                    ls::aa_nb(fidp, g.hfid, q), ls::aa_nb(zp, g.hz, q),
                     q.pax, q.pay, q.d_ex, q.d_ey, t, slot, take))
       sh.t[q.code] = t;
   }
@@ -71,9 +80,16 @@ aa_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
     ls::load_px<D>(color, p - x + min(x + 1, W - 1), cn);
 #pragma unroll
     for (int k = 0; k < D; ++k) o[k] = c0[k] + w.wa_h * (cn[k] - c0[k]);
-    ls::load_px<D>(color, ((size_t)b.c * H + min(y + 1, H - 1)) * W + x, cn);
+    const ls::Px dn = ls::aa_down(color, g.hcol, b.c, y, x, H, W);
+    ls::load_px<D>(dn.p, dn.i, cn);
 #pragma unroll
     for (int k = 0; k < D; ++k) o[k] = o[k] + w.wa_v * (cn[k] - c0[k]);
+    if (g.share != nullptr && y + 1 == H) {   // the next shard's row 0
+      float s[D];
+#pragma unroll
+      for (int k = 0; k < D; ++k) s[k] = -w.wb_v * (cn[k] - c0[k]);
+      ls::store_px<D>(g.share, (size_t)b.c * W + x, s);
+    }
     if (x > 0) ls::load_px<D>(color, p - 1, cn);
 #pragma unroll
     for (int k = 0; k < D; ++k)
@@ -94,13 +110,17 @@ extern "C" long long ls_aa_scratch(int tiles, int cap) {
   return ls::aa_scratch_bytes(tiles, cap);
 }
 
-// D = 4 (shaded) or 3 (silhouette) colour channels.
+// D = 4 (shaded) or 3 (silhouette) colour channels.  Row shards (AaGrid in
+// common.cuh): the planes are H = 32 TY rows from tile row row0; hfid, hz,
+// hcol the halo rows and share the share row, or all null.
 extern "C" int ls_aa_fwd(const float* rec, const int* counts,
                          const float* fid, const float* z, const float* color,
-                         float* out, void* scratch, int C, int TY, int TX,
-                         int cap, int H, int W, int D, float sxs, float sys,
-                         void* stream) {
-  const ls::AaGrid g{nullptr, nullptr, TY, TX, cap, 0, H, W, sxs, sys};
+                         float* out, void* scratch, const float* hfid,
+                         const float* hz, const float* hcol, float* share,
+                         int C, int TY, int TX, int cap, int H, int W, int D,
+                         int row0, float sxs, float sys, void* stream) {
+  const ls::AaGrid g{nullptr, nullptr, TY, TX, cap, 0, H, W, sxs, sys,
+                     row0, hfid, hz, hcol, nullptr, share};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 3:

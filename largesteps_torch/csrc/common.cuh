@@ -235,13 +235,40 @@ inline long long aa_scratch_bytes(int tiles, int cap) {
   return AA_TABLES * table <= AA_HASH_SMEM_MAX ? 0 : tiles * (table + 8);
 }
 
-// What both antialias kernels take besides their planes.
+// What both antialias kernels take besides their planes.  Under row shards
+// the planes hold H = 32 TY rows of the image from its tile row row0, and
+// the halo rows (C, W[, D]) are the next shard's first rows of the id,
+// depth, colour and (backward) output-cotangent planes: the down neighbours
+// of the last row, which is the image's own last row on the last shard.  A
+// vertical pair anchored at the last row writes its share of the
+// neighbour's value to `share` (C, W, D), which the caller adds to the next
+// shard's row 0; the pair below row 0 is the previous shard's.  Without row
+// shards row0 is 0 and the halo pointers are null.
 struct AaGrid {
   unsigned long long* tables;   // global owner tables, a tile's each; or null
   int* flags;                   // 0 free, 1 being built, 2 ready
   int TY, TX, cap, ts, H, W;    // ts: entries a table region holds
   float sxs, sys;
+  int row0;
+  const float *hfid, *hz, *hcol, *hdout;
+  float* share;
 };
+
+// A pixel of a plane with `ch` values a pixel: the plane and the index.
+struct Px {
+  const float* p;
+  size_t i;
+};
+
+// The down neighbour of pixel (c, y, x) of a plane (row 0 the image
+// bottom): the next row; past the last row the halo row where there is
+// one, else the last row itself (the image's edge replication).
+__device__ __forceinline__ Px aa_down(const float* plane, const float* halo,
+                                      int c, int y, int x, int H, int W) {
+  if (y + 1 < H) return Px{plane, ((size_t)c * H + y + 1) * W + x};
+  if (halo != nullptr) return Px{halo, (size_t)c * W + x};
+  return Px{plane, ((size_t)c * H + y) * W + x};
+}
 
 // Open-addressing hash table, face id -> lowest live slot of one tile's
 // bin.  An entry packs (id bits << 32 | slot); AA_EMPTY marks a free one.
@@ -552,7 +579,8 @@ __device__ __forceinline__ AaTables aa_collect(
     const size_t row = ((size_t)b.c * H + y) * W;
     f[i] = fidp[row + x];
     fr[i] = fidp[row + min(x + 1, W - 1)];
-    fd[i] = fidp[((size_t)b.c * H + min(y + 1, H - 1)) * W + x];
+    const Px d = aa_down(fidp, g.hfid, b.c, y, x, H, W);
+    fd[i] = d.p[d.i];
     fl[i] = c == 0 && has_l ? fidp[row + x - 1] : f[i];
   }
   const bool low = r0 == 0 && y0 > 0;
@@ -616,17 +644,18 @@ __device__ __forceinline__ AaTables aa_collect(
 }
 
 // One listed pair, decoded: its anchor (r, c) in the strip, direction, the
-// anchor and neighbour pixels, the anchor's NDC centre and the owner table
-// of the anchor's tile (1: left, 2: lower, 0: this one).
+// anchor pixel p, the neighbour pixel (pn; in the halo rows at ph where nh),
+// the anchor's NDC centre and the owner table of the anchor's tile (1:
+// left, 2: lower, 0: this one).
 struct AaItem {
   int code, r, c, dir, table;
-  size_t p, pn;
+  bool nh;
+  size_t p, pn, ph;
   float pax, pay, d_ex, d_ey;
 };
 
 __device__ __forceinline__ AaItem aa_item(int code, const StripBlock& b,
-                                          int H, int W, float sxs,
-                                          float sys) {
+                                          const AaGrid& g) {
   AaItem q;
   q.code = code;
   q.dir = code & 1;
@@ -635,13 +664,30 @@ __device__ __forceinline__ AaItem aa_item(int code, const StripBlock& b,
   q.c = cell % AA_CW - 1;
   q.table = q.c < 0 ? 1 : (q.r < 0 && b.strip == 0 ? 2 : 0);
   const int row = b.strip * STRIP_H + q.r;       // in the tile
-  q.p = ((size_t)b.c * H + b.ty * TILE_H + row) * W + b.tx * TILE_W + q.c;
-  q.pn = q.p + (q.dir ? W : 1);   // listed pairs differ: no edge pixel
-  q.pax = pixel_x(b.tx, q.c, sxs);
-  q.pay = pixel_y(b.ty, row, sys);
-  q.d_ex = q.dir ? 0.0f : sxs;
-  q.d_ey = q.dir ? sys : 0.0f;
+  const int y = b.ty * TILE_H + row, x = b.tx * TILE_W + q.c;
+  q.p = ((size_t)b.c * g.H + y) * g.W + x;
+  // listed pairs differ: no edge pixel, except a down pair of the last row
+  // whose neighbour is in the halo row
+  q.nh = q.dir && y + 1 == g.H && g.hfid != nullptr;
+  q.pn = q.p + (q.dir ? g.W : 1);
+  q.ph = (size_t)b.c * g.W + x;
+  q.pax = pixel_x(b.tx, q.c, g.sxs);
+  q.pay = pixel_y(b.ty + g.row0, row, g.sys);
+  q.d_ex = q.dir ? 0.0f : g.sxs;
+  q.d_ey = q.dir ? g.sys : 0.0f;
   return q;
+}
+
+// The pair's neighbour value in a plane and its halo row.
+__device__ __forceinline__ float aa_nb(const float* __restrict__ plane,
+                                       const float* halo, const AaItem& q) {
+  return q.nh ? halo[q.ph] : plane[q.pn];
+}
+
+// The pair's neighbour pixel in a plane of D values a pixel and its halo.
+__device__ __forceinline__ Px aa_nb_px(const float* plane, const float* halo,
+                                       const AaItem& q) {
+  return q.nh ? Px{halo, q.ph} : Px{plane, q.pn};
 }
 
 // The blend weights that a pixel (r, c) of the strip combines, from the

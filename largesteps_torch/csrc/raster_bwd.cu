@@ -23,6 +23,8 @@
 // output with global atomics (native adds in L2); only this block adds to
 // its tile's rows, so it zeroes them itself first, behind a fence and a
 // barrier.  Either way the output needs no memset.
+// Under row shards the pixel centres are those of the image's tile row
+// t.ty + R0 (pallas_core.py:_bwd_kernel, row0); the planes are the shard's.
 #include "common.cuh"
 
 namespace {
@@ -81,7 +83,8 @@ raster_bwd_kernel(const float* __restrict__ rec,
                   const float* __restrict__ slot_plane,
                   const float* __restrict__ dcol, const float* __restrict__ du_p,
                   const float* __restrict__ dv_p, float* __restrict__ out,
-                  int TY, int TX, int cap, int H, int W, float sxs, float sys) {
+                  int TY, int TX, int cap, int H, int W, int R0, float sxs,
+                  float sys) {
   extern __shared__ float4 tab4[];     // (cap, 18) floats when SMEM
   const ls::Tile t = ls::tile_of_block(TY, TX);
   const float* rb = rec + (size_t)t.b * cap * 32;
@@ -101,7 +104,7 @@ raster_bwd_kernel(const float* __restrict__ rec,
   const int lane = threadIdx.x & 31;
   const size_t pix0 = ((size_t)t.c * H + t.ty * ls::TILE_H + row) * W +
                       t.tx * ls::TILE_W + lane;
-  const float py = ls::pixel_y(t.ty, row, sys);
+  const float py = ls::pixel_y(t.ty + R0, row, sys);   // the image's row
   int slots[ls::RB_STEPS];
 #pragma unroll
   for (int k = 0; k < ls::RB_STEPS; ++k) {
@@ -168,8 +171,8 @@ raster_bwd_kernel(const float* __restrict__ rec,
 extern "C" int ls_raster_bwd(const float* rec, const float* slot,
                              const float* dcol, const float* du,
                              const float* dv, float* out, int C, int TY,
-                             int TX, int cap, int H, int W, float sxs,
-                             float sys, void* stream) {
+                             int TX, int cap, int H, int W, int R0,
+                             float sxs, float sys, void* stream) {
   const int blocks = C * TY * TX;
   const size_t table = ((size_t)cap * ls::RB_SUMS + 3) / 4 * 16;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -178,10 +181,10 @@ extern "C" int ls_raster_bwd(const float* rec, const float* slot,
     const cudaError_t e = ls::smem_opt_in<raster_bwd_kernel<true>>(table, 0);
     if (e != cudaSuccess) return (int)e;
     raster_bwd_kernel<true><<<blocks, ls::RB_THREADS, table, st>>>(
-        rec, slot, dcol, du, dv, out, TY, TX, cap, H, W, sxs, sys);
+        rec, slot, dcol, du, dv, out, TY, TX, cap, H, W, R0, sxs, sys);
   } else {
     raster_bwd_kernel<false><<<blocks, ls::RB_THREADS, 0, st>>>(
-        rec, slot, dcol, du, dv, out, TY, TX, cap, H, W, sxs, sys);
+        rec, slot, dcol, du, dv, out, TY, TX, cap, H, W, R0, sxs, sys);
   }
   return (int)cudaGetLastError();
 }

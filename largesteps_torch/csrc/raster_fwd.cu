@@ -24,7 +24,9 @@
 // first, the depth only where a lane of the warp is covered.  Each pixel
 // keeps the (depth, face id)-lexicographic minimum, the lowest slot on a
 // tie (the list's order), then reads the winner's record once to
-// interpolate.
+// interpolate.  Under row shards the planes hold TY tile rows of the image
+// from its tile row R0: pixel centres and the records' rows are the
+// image's, the stores the planes' own (pallas_core.py:_fwd_kernel, row0).
 #include "common.cuh"
 
 namespace {
@@ -38,7 +40,7 @@ struct Shared {
 __global__ void __launch_bounds__(ls::RF_THREADS)
 raster_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
                   float* __restrict__ out, int C, int TY, int TX, int cap,
-                  int H, int W, float sxs, float sys) {
+                  int H, int W, int R0, float sxs, float sys) {
   __shared__ Shared sh;
   const ls::StripBlock b = ls::strip_block(TY, TX);
   const int n = min(counts[b.tile], cap);
@@ -55,9 +57,11 @@ raster_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
   const float wx0 = ls::pixel_x(b.tx, warp * ls::RF_BAND, sxs);
   const float wx1 = ls::pixel_x(b.tx, warp * ls::RF_BAND + ls::RF_BAND - 1,
                                 sxs);
-  const float sy0 = ls::pixel_y(b.ty, row0, sys);
-  const float sy1 = ls::pixel_y(b.ty, row0 + ls::STRIP_H - 1, sys);
-  const float row_lo = (float)(b.ty * ls::TILE_H + row0);
+  // pixel centres and record rows are the image's: tile row b.ty + R0
+  const int gty = b.ty + R0;
+  const float sy0 = ls::pixel_y(gty, row0, sys);
+  const float sy1 = ls::pixel_y(gty, row0 + ls::STRIP_H - 1, sys);
+  const float row_lo = (float)(gty * ls::TILE_H + row0);
   const float row_hi = row_lo + (float)(ls::STRIP_H - 1);
 
   const float px = ls::pixel_x(b.tx, col, sxs);
@@ -65,7 +69,7 @@ raster_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
   int bs[ls::RF_ROWS];
 #pragma unroll
   for (int k = 0; k < ls::RF_ROWS; ++k) {
-    py[k] = ls::pixel_y(b.ty, rows + k, sys);
+    py[k] = ls::pixel_y(gty, rows + k, sys);
     bd[k] = ls::BIG;
     bf[k] = ls::BIG;
     bs[k] = -1;
@@ -191,12 +195,14 @@ raster_fwd_kernel(const float* __restrict__ rec, const int* __restrict__ counts,
 
 }  // namespace
 
+// The planes hold TY tile rows (H = 32 TY pixel rows) of an image whose
+// pixel pitch is (sxs, sys), from its tile row R0 (0 without row shards).
 extern "C" int ls_raster_fwd(const float* rec, const int* counts, float* out,
                              int C, int TY, int TX, int cap, int H, int W,
-                             float sxs, float sys, void* stream) {
+                             int R0, float sxs, float sys, void* stream) {
   const int blocks = C * TY * TX * ls::STRIPS;
   if (blocks > 0)
     raster_fwd_kernel<<<blocks, ls::RF_THREADS, 0, (cudaStream_t)stream>>>(
-        rec, counts, out, C, TY, TX, cap, H, W, sxs, sys);
+        rec, counts, out, C, TY, TX, cap, H, W, R0, sxs, sys);
   return (int)cudaGetLastError();
 }

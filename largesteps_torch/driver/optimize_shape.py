@@ -1,4 +1,4 @@
-"""The optimization driver: the unsharded path, with remeshing.
+"""The optimization driver, with remeshing and sharding.
 
 Port of ``largesteps_tpu/driver/optimize_shape.py``: render the reference
 images, parameterize v → u with M = I + λL (or optimize the coordinates
@@ -33,8 +33,20 @@ that step (0: before the first), a list is a schedule taken in order.  At a
 scheduled step the solved vertices are remeshed on the host to half their
 mean edge length (``native/remesh.cpp``), the old epoch is freed, the new
 one is built, and the optimizer starts afresh at 0.8 × the step size,
-keeping the translation.  Sharding is a later slice (ROADMAP.md Queue 1)
-and raises ``NotImplementedError``.
+keeping the translation.
+
+``sharding`` (an int dp, or ``{"dp", "sp"}``) runs the step on a ``(dp,
+sp)`` mesh of ranks: ``dp · sp`` processes of an initialized
+``torch.distributed`` process group, each calling ``optimize_shape`` with
+the same arguments (``parallel.distributed.launch`` starts them); without
+that process group it raises.  Each rank renders its shard of the views
+(``parallel.sharding``): the reference images, the loss over its pixels as
+its share of the mean over all of them, and the gradients of the
+renderer's inputs summed over the ranks.  The parameters, the optimizer,
+the solver (``"CG"`` takes the edge-sharded ``ShardedCGSolver``), the
+remesher and the checkpoints (written by rank 0) see replicated state, and
+the host decisions that could part the ranks (a rebin, its route, a time
+budget's end) are taken together.  Every rank returns the same result.
 """
 from __future__ import annotations
 
@@ -61,8 +73,12 @@ from ..io.xml_scene import load_scene
 from ..native import remesh as native_remesh
 from ..ops.mesh import average_edge_length, remove_duplicates
 from ..ops.normals import compute_face_normals, compute_vertex_normals
+from ..parallel import distributed as pdist
+from ..parallel.sharding import gather_images, make_mesh, shard_renderer
+from ..parallel.tri_shard import ShardedCGSolver
 from ..render.camera import project
-from ..render.pipeline import bin_triangles_device, bin_triangles_host
+from ..render.pipeline import (bin_triangles_device, bin_triangles_host,
+                               suggest_cap)
 from ..render.renderer import Renderer, Topology
 from .checkpoint import load_checkpoint, save_checkpoint, state_from_numpy
 
@@ -188,10 +204,46 @@ class _Epoch:
     occupancy: int = 0          # bin occupancy of v_src at epoch build
 
 
-def _check_supported(p):
-    if p["sharding"]:
-        raise NotImplementedError("sharding is a later slice "
-                                  "(ROADMAP.md Queue 1, item 5)")
+def _make_mesh(p):
+    """The run's ``(dp, sp)`` mesh from ``p["sharding"]`` (an int dp or a
+    dict), or None.  Raises without a process group of dp · sp ranks."""
+    sh = p["sharding"]
+    if not sh:
+        return None
+    sh = {"dp": sh} if isinstance(sh, int) else dict(sh)
+    return make_mesh(int(sh.get("dp", 1)), int(sh.get("sp", 1)))
+
+
+def _make_solver(M, p, mesh):
+    """The epoch's solver: with a mesh and ``"CG"``, the edge-sharded CG
+    (JAX's ``optimize_shape.py:264-274``); with a mesh otherwise,
+    ``get_solver``'s with rank 0's solutions (:class:`_Rank0Solves`);
+    else ``get_solver``'s."""
+    if mesh is None:
+        return get_solver(M, p["solver"])
+    if p["solver"] == "CG":
+        return ShardedCGSolver(M, mesh)
+    return _Rank0Solves(get_solver(M, p["solver"]))
+
+
+class _Rank0Solves:
+    """A replicated solver whose solutions are rank 0's (one broadcast a
+    solve).  On the card the ranks' replicated inputs to a solve (the
+    matrix's coalesced values, u = M v, the backward's gradients) are
+    summed with float atomics and part by ulps; the solutions, which every
+    parameter, remesh and result is read from, must not.
+    ``ShardedCGSolver`` starts from rank 0's right-hand side instead."""
+
+    def __init__(self, solver):
+        self.inner = solver
+        self.tier = solver.tier
+
+    @property
+    def iters(self):
+        return getattr(self.inner, "iters", None)
+
+    def solve(self, b, x0=None):
+        return pdist.broadcast(self.inner.solve(b, x0).contiguous())
 
 
 def _make_optimizer(name_or_fn, params, lr):
@@ -229,9 +281,17 @@ def _host_bins(renderer, v, topology, margin, cap=None, cull=False,
     vh = np.concatenate([v_host, np.ones((v_host.shape[0], 1), np.float32)],
                         axis=1)
     v_ndc = np.einsum("cij,vj->cvi", mvps, vh)
-    out = bin_triangles_host(v_ndc, topology.faces, renderer.res, cap=cap,
-                             margin=margin, cull=cull,
-                             return_spans=return_spans, return_slots=True)
+    run = lambda c: bin_triangles_host(v_ndc, topology.faces, renderer.res,
+                                       cap=c, margin=margin, cull=cull,
+                                       return_spans=True, return_slots=True)
+    out = run(cap)
+    if renderer.mesh is not None:
+        # the bins of the rank's views: the occupancy, the cap and the
+        # spans are every rank's, so that all build the same pipes
+        occ, sy, sx = pdist.host_max([out[3], *out[4]], renderer.mesh)
+        if cap is None and suggest_cap(int(occ)) != out[0].shape[-1]:
+            out = run(suggest_cap(int(occ)))
+        out = out[:3] + (int(occ), (int(sy), int(sx)))
     bins, counts, fslots = out[:3]
     # the face→slot inverse padded to the device binning's K = 4, so the
     # pipe's shapes stay when rebins move to the device
@@ -333,10 +393,12 @@ class _Rebins:
     """The large-F path's rebin policy around the step loop (a no-op on
     other epochs).  :meth:`before` rebins when :func:`_rebin_due` says so:
     on the device, or on the host where the tile spans do not fit the
-    device binning or the last device rebin overflowed.  :meth:`after`
+    device binning or the last device rebin overflowed.  On a mesh the
+    ranks decide together: a rank's due step or overflow, read from its own
+    events, is every rank's (one host reduction a step).  :meth:`after`
     queues the step's displacement as a host copy with an event, and keeps
-    at most ``max_inflight`` steps queued.  ``prof`` gains ``rebin_s`` and
-    ``rebin_n``."""
+    at most ``max_inflight`` steps queued.  ``prof`` gains ``rebin_s``,
+    ``rebin_n`` and ``rebin_steps``."""
 
     def __init__(self, st, p, renderer, theta, start_it, prof):
         self.st, self.p, self.renderer, self.theta = st, p, renderer, theta
@@ -344,19 +406,28 @@ class _Rebins:
         self.prof = prof
         prof.setdefault("rebin_s", 0.0)
         prof.setdefault("rebin_n", 0)
+        prof.setdefault("rebin_steps", [])
         self.disp_q = deque()       # (host displacement, event) a step
         self.inflight = deque()     # events of the queued steps
 
     def before(self, it, v_last):
         st, p, theta = self.st, self.p, self.theta
-        if not (st.use_host_bins and it > self.start_it and _rebin_due(
-                st, p, it - self.last_it, self.disp_q)):
+        mesh = self.renderer.mesh
+        if not (st.use_host_bins and it > self.start_it):
+            return
+        due = _rebin_due(st, p, it - self.last_it, self.disp_q)
+        if mesh is not None:
+            due = pdist.host_max([due], mesh)[0] > 0
+        if not due:
             return
         t0 = time.perf_counter()
         with _span("rebin"):
             tr = theta["tr"].detach() if p["use_tr"] \
                 else torch.zeros_like(theta["tr"])
-            if st.device_rebin_ok and not _bins_overflowed(st):
+            on_device = st.device_rebin_ok and not _bins_overflowed(st)
+            if mesh is not None:
+                on_device = pdist.host_max([not on_device], mesh)[0] == 0
+            if on_device:
                 _rebin_device(st, p, self.renderer, v_last[st.dup_dev] + tr)
             else:
                 _rebin(st, p, self.renderer,
@@ -366,6 +437,7 @@ class _Rebins:
         self.disp_q.clear()
         self.prof["rebin_s"] += time.perf_counter() - t0
         self.prof["rebin_n"] += 1
+        self.prof["rebin_steps"].append(it)
 
     def after(self, disp):
         if not self.st.use_host_bins:
@@ -426,7 +498,7 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
         st.u = to_differential(
             st.M, torch.as_tensor(v_unique, dtype=torch.float32,
                                   device=device))
-        st.solver = get_solver(st.M, p["solver"])   # factor once per epoch
+        st.solver = _make_solver(st.M, p, renderer.mesh)  # once an epoch
     _sync(device)
     setup["factor_s"] = time.perf_counter() - t0
     return st
@@ -438,8 +510,13 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
     the large-F path the largest screen displacement (px) of a rendered
     vertex since the bins were made (0 elsewhere), and an iterative
     solver's (forward, backward) iteration counts (None for a direct one)).
-    The solves' warm starts begin at the epoch's source vertices and zero."""
+    The solves' warm starts begin at the epoch's source vertices and zero.
+    On a mesh the image loss is the rank's share of the mean over every
+    rank's pixels, and the one returned its sum over the ranks."""
     dev = renderer.device
+    mesh = renderer.mesh
+    # the pixels of every rank's images (each rank holds an equal shard)
+    n_pix = ref_imgs.numel() * (1 if mesh is None else mesh.size)
     dup = torch.as_tensor(st.duplicate_idx.astype(np.int64), device=dev)
     f_unique = torch.as_tensor(st.f_unique.astype(np.int64), device=dev)
     reg = float(p["reg"])
@@ -469,13 +546,21 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
                                    bins=st.bins if st.use_host_bins else None)
         with _span("loss"):
             diff = imgs - ref_imgs
-            im_loss = diff.abs().mean() if l1 else diff.square().mean()
+            err = diff.abs() if l1 else diff.square()
+            im_loss = err.mean() if mesh is None else err.sum() / n_pix
             Lv = coo_matvec(st.L, v_unique)
             reg_loss = Lv.square().mean() if p["bilaplacian"] \
                 else (v_unique * Lv).mean()
             loss = im_loss + reg * reg_loss
         with _span("backward"):
             loss.backward()
+        # always log the bilaplacian magnitude, like reference main.py:200
+        logged = (im_loss.detach(), Lv.detach().square().mean())
+        if mesh is not None:
+            # the image loss summed over the ranks; the logged magnitude,
+            # replicated up to the card's float atomics, their mean
+            logged = tuple(pdist.all_reduce(torch.stack(
+                [logged[0], logged[1] / mesh.size])))
         if iters is not None:
             iters = torch.stack([iters, st.solver.iters])
         if p["smooth"]:
@@ -496,9 +581,7 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
         # step's copy
         v_out = v_unique.detach() if p["smooth"] \
             else v_unique.detach().clone()
-        # always log the bilaplacian magnitude, like reference main.py:200
-        return ((im_loss.detach(), Lv.detach().square().mean()), v_out, disp,
-                iters)
+        return logged, v_out, disp, iters
 
     return step
 
@@ -527,12 +610,13 @@ def _solver_info(st):
     bytes (:func:`core.multigrid.describe`)."""
     if st.solver is None:
         return None
-    big = getattr(st.solver, "_big", None)
+    slv = getattr(st.solver, "inner", st.solver)    # under _Rank0Solves
+    big = getattr(slv, "_big", None)
     banded = isinstance(big, BandedSolver)
     info = {"tier": st.solver.tier, "block": big.B if banded else None,
             "blocks": big.nb if banded else None}
     if info["tier"] == "amg":
-        info.update(describe(st.solver.h))
+        info.update(describe(slv.h))
     elif info["tier"] == "blockamg":
         info.update(describe(big._mg.h))
     return info
@@ -602,6 +686,7 @@ class _Run:
     step_size: float
     resume: Any
     setup: dict                 # seconds of the setup's parts
+    mesh: Any = None            # the run's (dp, sp) mesh of ranks, or None
 
 
 def _prepare(scene, p, dev) -> _Run:
@@ -613,7 +698,7 @@ def _prepare(scene, p, dev) -> _Run:
     if resume is not None:
         v_src = resume["v_src"].astype(np.float32)
         f_src = resume["f_src"].astype(np.int32)
-    _check_supported(p)
+    mesh = _make_mesh(p)
 
     f_ref = np.asarray(scene["mesh-target"]["faces"], np.int32)
     v_ref = torch.as_tensor(np.asarray(scene["mesh-target"]["vertices"],
@@ -627,6 +712,8 @@ def _prepare(scene, p, dev) -> _Run:
                 v_ref, f_ref, compute_face_normals(v_ref, f_ref))
         renderer = Renderer(scene, shading=p["shading"], boost=p["boost"],
                             chunk=p["raster_chunk"], device=dev)
+        if mesh is not None:
+            shard_renderer(renderer, mesh, shard_rows=mesh.sp > 1)
         ref_topo = Topology(f_ref)
         t0 = time.perf_counter()
         if renderer.backend == "tiles" \
@@ -663,7 +750,7 @@ def _prepare(scene, p, dev) -> _Run:
     return _Run(st=st, renderer=renderer, ref_imgs=ref_imgs,
                 v_ref=v_ref, f_ref=f_ref, v_src=v_src, f_src=f_src,
                 theta=theta, optimizer=optimizer, step=step,
-                step_size=step_size, resume=resume, setup=setup)
+                step_size=step_size, resume=resume, setup=setup, mesh=mesh)
 
 
 def optimize_shape(scene, params=None, device=None):
@@ -676,7 +763,11 @@ def optimize_shape(scene, params=None, device=None):
     epoch), tr, iters, wall_time, prof and the reference images and mesh.
     ``prof["remeshes"]`` holds one record a remesh: its step, h, the mesh
     before and after, the remesher's host seconds, the new epoch's setup
-    split, solver, bins and cap, and where it fell in the wall time."""
+    split, solver, bins and cap, and where it fell in the wall time.  With
+    ``params["sharding"]`` every rank of the process group calls this with
+    the same arguments and gets the same result (``im_ref`` the whole
+    reference images); ``prof["sharding"]`` holds the mesh and the rank's
+    layout."""
     dev = resolve_device(device)
     p = default_params()
     if params:
@@ -689,6 +780,7 @@ def optimize_shape(scene, params=None, device=None):
     renderer, ref_imgs = run.renderer, run.ref_imgs
     v_src, f_src, resume = run.v_src, run.f_src, run.resume
     step_size = run.step_size
+    mesh = run.mesh
 
     steps = int(p["steps"])
     opt_time = float(p["time"]) * 60.0
@@ -697,20 +789,31 @@ def optimize_shape(scene, params=None, device=None):
     start_it = int(resume["meta"]["step"]) if resume is not None else 0
     remesh_it, remesh_schedule = _remesh_schedule(p, resume, start_it)
 
+    im_ref = ref_imgs.cpu().numpy() if mesh is None \
+        else gather_images(ref_imgs, renderer)
     result = {"vert_steps": [], "tr_steps": [], "f": [f_src.copy()],
-              "losses": [], "im_ref": ref_imgs.cpu().numpy(),
+              "losses": [], "im_ref": im_ref,
               "v_ref": run.v_ref.cpu().numpy(), "f_ref": run.f_ref.copy()}
     prof = {"first_step_s": 0.0, "rebin_s": 0.0, "rebin_n": 0,
             "setup_s": time.perf_counter() - t_setup0, **run.setup,
             "remeshes": []}
+    if mesh is not None:
+        prof["sharding"] = {"dp": mesh.dp, "sp": mesh.sp,
+                            "rank": mesh.rank, "backend": mesh.backend,
+                            "row_shards": renderer.row_shards,
+                            "views": [renderer.cam_slice.start,
+                                      renderer.cam_slice.stop],
+                            "rows": [renderer.row_slice.start,
+                                     renderer.row_slice.stop]}
     del run                     # the epoch is held by the names above only
 
     def checkpoint(it):
         pending = ([remesh_it] if remesh_it > 0 else []) + remesh_schedule
-        save_checkpoint(p["checkpoint_path"], theta=theta,
-                        optimizer=optimizer, v_src=v_src, f_src=f_src,
-                        step=it, step_size=step_size,
-                        remesh_schedule=pending)
+        save = save_checkpoint if mesh is None \
+            else pdist.save_checkpoint_multihost
+        save(p["checkpoint_path"], theta=theta, optimizer=optimizer,
+             v_src=v_src, f_src=f_src, step=it, step_size=step_size,
+             remesh_schedule=pending)
 
     it = start_it
     rebins = _Rebins(st, p, renderer, theta, start_it, prof)
@@ -719,7 +822,15 @@ def optimize_shape(scene, params=None, device=None):
     iter_log = []               # an iterative solver's counts a step
     t0 = time.perf_counter()
     t = t0
-    while (steps > 0 and it < steps) or (steps < 0 and (t - t0) < opt_time):
+
+    def going():
+        if steps > 0:
+            return it < steps
+        # a time budget: on a mesh every rank stops at the first rank's end
+        over = (t - t0) >= opt_time
+        return not (over if mesh is None else pdist.host_max([over], mesh)[0])
+
+    while going():
         if p["checkpoint_every"] and p["checkpoint_path"] and it > start_it \
                 and it % p["checkpoint_every"] == 0:
             checkpoint(it)

@@ -21,6 +21,18 @@ operation for operation (the kernels are built with ``-fmad=false``).
 Layouts are the JAX package's: records (C, TY, TX, cap, 32), counts
 (C, TY, TX) int32, planes (C, H, W) float32 with row 0 at the image bottom,
 32×128 pixel tiles.
+
+Row shards (``pallas_core.py``'s ``row0`` and ``halo``): every kernel takes
+``row0``, the first tile row of its planes in an image of ``resolution``
+(the whole image's), so that a rank holding TY of its tile rows computes
+global pixel centres; its planes are (C, TY·32, W).  The antialias kernels
+also take ``halo``: the first row of the next row shard's planes (on the
+last shard, the shard's own last row, which is the image's edge
+replication).  A vertical pair anchored at the shard's last row reads its
+neighbour there, and its share of the neighbour's colour (or cotangent) is
+returned as one more (C, W, D) row, which the caller adds to the next
+shard's row 0 (``_shift_down_ch_halo``).  The pair anchored below a
+shard's row 0 is the previous shard's: its share arrives that way.
 """
 from __future__ import annotations
 
@@ -56,14 +68,16 @@ def _pitch(height, width):
     return float(np.float32(2.0 / width)), float(np.float32(2.0 / height))
 
 
-def _pixel_coords(ty, tx, resolution, device):
-    """NDC pixel centres in tile layout: (px, py), each (TY, TX, P)."""
+def _pixel_coords(ty, tx, resolution, device, row0=0):
+    """NDC pixel centres in tile layout: (px, py), each (TY, TX, P), of the
+    TY tile rows from tile row ``row0``."""
     sxs, sys_ = _scales(resolution)
     p = torch.arange(_P, device=device)
     col = (p % TILE_W).to(torch.float32)
     row = (p // TILE_W).to(torch.float32)
     tx0 = (torch.arange(tx, device=device) * TILE_W).to(torch.float32)
-    ty0 = (torch.arange(ty, device=device) * TILE_H).to(torch.float32)
+    ty0 = ((torch.arange(ty, device=device) + row0) * TILE_H) \
+        .to(torch.float32)
     px = ((tx0[None, :, None] + col) + 0.5) * sxs - 1.0
     py = ((ty0[:, None, None] + row) + 0.5) * sys_ - 1.0
     return px.expand(ty, tx, _P), py.expand(ty, tx, _P)
@@ -101,9 +115,11 @@ def _shift_left(x):
     return torch.cat([x[:, :, 1:], x[:, :, -1:]], dim=2)
 
 
-def _shift_up(x):
-    """Down-neighbour values (edge-replicated; row 0 is the image bottom)."""
-    return torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+def _shift_up(x, halo=None):
+    """Down-neighbour values (edge-replicated; row 0 is the image bottom);
+    with ``halo`` (C, W[, D]) the last row's neighbours are the halo row."""
+    last = x[:, -1:] if halo is None else halo[:, None]
+    return torch.cat([x[:, 1:], last], dim=1)
 
 
 def _shift_right_ch(x):
@@ -137,6 +153,13 @@ def _check_cuda_inputs(name, **tensors):
                              f"{'' if t.is_contiguous() else ' (strided)'}")
 
 
+def _check_rows(name, ty, row0, resolution):
+    """The TY tile rows from ``row0`` lie in the image of ``resolution``."""
+    if row0 < 0 or (row0 + ty) * TILE_H > resolution[0]:
+        raise ValueError(f"{name}: tile rows {row0}..{row0 + ty - 1} are "
+                         f"not in an image of height {resolution[0]}")
+
+
 def _check_aligned(name, *tensors):
     """The raster kernels read records 16 bytes at a time."""
     if any(t.data_ptr() % 16 for t in tensors):
@@ -151,34 +174,37 @@ def _stream() -> int:
 # 1. rasterize + interpolate (forward)
 # ---------------------------------------------------------------------------
 
-def raster_fwd(rec_fwd_b, counts_b, resolution):
+def raster_fwd(rec_fwd_b, counts_b, resolution, row0=0):
     """Z-buffered rasterization and perspective-correct interpolation over
     per-tile bins.  rec_fwd_b (C, TY, TX, cap, 32), counts_b (C, TY, TX)
-    int32.  Returns (u, v, z, fid, slot, col0, col1, col2), each (C, H, W):
-    z = z/w, fid 1-based (0 = background), slot −1 on background."""
+    int32, of the TY tile rows from ``row0``.  Returns (u, v, z, fid, slot,
+    col0, col1, col2), each (C, TY·32, W): z = z/w, fid 1-based (0 =
+    background), slot −1 on background."""
     if _device_kind(rec_fwd_b, counts_b) == "cpu":
-        return raster_fwd_plain(rec_fwd_b, counts_b, resolution)
+        return raster_fwd_plain(rec_fwd_b, counts_b, resolution, row0)
     from .. import _cuda
     _check_cuda_inputs("raster_fwd", rec=rec_fwd_b, counts=counts_b)
     _check_aligned("raster_fwd", rec_fwd_b)
     C, ty, tx, cap, _ = rec_fwd_b.shape
-    height, width = resolution
+    _check_rows("raster_fwd", ty, row0, resolution)
+    height, width = ty * TILE_H, resolution[1]
     out = torch.empty((8, C, height, width), dtype=torch.float32,
                       device=rec_fwd_b.device)
     sxs, sys_ = _scales(resolution)
     err = _cuda.library("raster_fwd")(
         rec_fwd_b.data_ptr(), counts_b.data_ptr(), out.data_ptr(),
-        C, ty, tx, cap, height, width, sxs, sys_, _stream())
+        C, ty, tx, cap, height, width, int(row0), sxs, sys_, _stream())
     _cuda.check("raster_fwd", err)
     LAUNCHES["raster_fwd"] += 1
     return tuple(out.unbind(0))
 
 
-def raster_fwd_plain(rec_fwd_b, counts_b, resolution):
+def raster_fwd_plain(rec_fwd_b, counts_b, resolution, row0=0):
     """Plain PyTorch version of :func:`raster_fwd`."""
     C, ty, tx, cap, _ = rec_fwd_b.shape
     dev = rec_fwd_b.device
-    px, py = _pixel_coords(ty, tx, resolution, dev)
+    _check_rows("raster_fwd", ty, row0, resolution)
+    px, py = _pixel_coords(ty, tx, resolution, dev, row0)
     pxe, pye = px[None, :, :, None, :], py[None, :, :, None, :]
     counts = counts_b.to(torch.int64)
     zb = torch.full((C, ty, tx, _P), BIG, dtype=torch.float32, device=dev)
@@ -230,22 +256,25 @@ def raster_fwd_plain(rec_fwd_b, counts_b, resolution):
 # 3. rasterize + interpolate (backward)
 # ---------------------------------------------------------------------------
 
-def raster_bwd(rec_bwd_b, counts_b, slot, d_col, d_u, d_v, resolution):
+def raster_bwd(rec_bwd_b, counts_b, slot, d_col, d_u, d_v, resolution,
+               row0=0):
     """Per-(camera, tile, slot) sums of the 18 analytic gradients of
     (u, v, colour) with respect to the owner's screen xy ×3, inverse w ×3
-    and corner attributes ×9.  slot (C, H, W) float (−1 = background),
-    d_col (C, H, W, 3), d_u and d_v (C, H, W).  Returns (C, TY, TX, cap, 32)
-    with columns 0-17 = [dsx0 dsy0 dsx1 dsy1 dsx2 dsy2 diw0 diw1 diw2
-    dA00 .. dA22] and 18-31 zero."""
+    and corner attributes ×9, over the TY tile rows from ``row0``.  slot
+    (C, TY·32, W) float (−1 = background), d_col (C, TY·32, W, 3), d_u and
+    d_v (C, TY·32, W).  Returns (C, TY, TX, cap, 32) with columns 0-17 =
+    [dsx0 dsy0 dsx1 dsy1 dsx2 dsy2 diw0 diw1 diw2 dA00 .. dA22] and 18-31
+    zero."""
     if _device_kind(rec_bwd_b, counts_b, slot, d_col, d_u, d_v) == "cpu":
         return raster_bwd_plain(rec_bwd_b, counts_b, slot, d_col, d_u, d_v,
-                                resolution)
+                                resolution, row0)
     from .. import _cuda
     _check_cuda_inputs("raster_bwd", rec=rec_bwd_b, counts=counts_b,
                        slot=slot, d_col=d_col, d_u=d_u, d_v=d_v)
     _check_aligned("raster_bwd", rec_bwd_b)
     C, ty, tx, cap, _ = rec_bwd_b.shape
-    height, width = resolution
+    _check_rows("raster_bwd", ty, row0, resolution)
+    height, width = ty * TILE_H, resolution[1]
     # the kernel writes every element (zeros, then adds the sums)
     out = torch.empty((C, ty, tx, cap, 32), dtype=torch.float32,
                       device=rec_bwd_b.device)
@@ -253,7 +282,7 @@ def raster_bwd(rec_bwd_b, counts_b, slot, d_col, d_u, d_v, resolution):
     err = _cuda.library("raster_bwd")(
         rec_bwd_b.data_ptr(), slot.data_ptr(), d_col.data_ptr(),
         d_u.data_ptr(), d_v.data_ptr(), out.data_ptr(),
-        C, ty, tx, cap, height, width, sxs, sys_, _stream())
+        C, ty, tx, cap, height, width, int(row0), sxs, sys_, _stream())
     _cuda.check("raster_bwd", err)
     LAUNCHES["raster_bwd"] += 1
     return out
@@ -298,11 +327,13 @@ def _raster_bwd_fields(f, px, py, dc0, dc1, dc2, du_in, dv_in):
     ], dim=-1)
 
 
-def raster_bwd_plain(rec_bwd_b, counts_b, slot, d_col, d_u, d_v, resolution):
+def raster_bwd_plain(rec_bwd_b, counts_b, slot, d_col, d_u, d_v, resolution,
+                     row0=0):
     """Plain PyTorch version of :func:`raster_bwd`."""
     C, ty, tx, cap, _ = rec_bwd_b.shape
     dev = rec_bwd_b.device
-    px, py = _pixel_coords(ty, tx, resolution, dev)
+    _check_rows("raster_bwd", ty, row0, resolution)
+    px, py = _pixel_coords(ty, tx, resolution, dev, row0)
     st = _to_tiles(slot).to(torch.int64)
     dct = _to_tiles(d_col)
     f = _gather_slots(rec_bwd_b, st, list(range(22)))
@@ -395,35 +426,46 @@ def _aa_pair_t(fields, pax, pay, d_ex, d_ey, other):
     return best_t, found, takes, geos
 
 
-def _aa_directions(rec, counts, fid, z, resolution):
+def _aa_directions(rec, counts, fid, z, resolution, row0=0, halo=None):
     """Per direction (right, down): owner slot, other id, difference flag,
-    NDC offset, and the owner's 9 edge fields, all in tile layout."""
-    C, ty, tx = counts.shape
+    NDC offset, the owner's 9 edge fields, all in tile layout, and the
+    neighbour shift ``nb(x, x_halo)`` (the halo row is the down
+    neighbour of the last row where ``halo`` is given)."""
+    fid_h, z_h = (None, None) if halo is None else halo[:2]
     sxs, sys_ = _scales(resolution)
+    right = lambda x, h=None: _shift_left(x)
+    down = lambda x, h=None: _shift_up(x, h)
     out = []
-    for nb, d_ex, d_ey in ((_shift_left, sxs, 0.0), (_shift_up, 0.0, sys_)):
+    for nb, d_ex, d_ey in ((right, sxs, 0.0), (down, 0.0, sys_)):
         own, oth, dif = _aa_common(_to_tiles(fid), _to_tiles(z),
-                                   _to_tiles(nb(fid)), _to_tiles(nb(z)))
+                                   _to_tiles(nb(fid, fid_h)),
+                                   _to_tiles(nb(z, z_h)))
         slot = _find_slots(rec, counts, torch.where(dif, own, 0.0))
         fields = _gather_slots(rec, slot, _AA_COLS)
         out.append((own, oth, dif, slot, fields, d_ex, d_ey, nb))
     return out
 
 
-def _aa_checks(name, rec, color, resolution, *planes):
+def _aa_checks(name, rec, color, resolution, *planes, row0=0, halo=None):
     """What the antialias kernels take beyond _check_cuda_inputs: tiles that
     match the planes, 3 or 4 channels (silhouette or shaded), 16-byte
-    aligned colour planes (D = 4 moves as float4)."""
+    aligned colour planes (D = 4 moves as float4), halo rows of the
+    planes' width."""
     C, ty, tx = rec.shape[:3]
     D = color.shape[-1]
     if tuple(color.shape[:3]) != (C, ty * TILE_H, tx * TILE_W) \
-            or tuple(resolution) != tuple(color.shape[1:3]):
+            or resolution[1] != color.shape[2]:
         raise ValueError(f"{name}: colour {tuple(color.shape)} does not "
                          f"match {ty}x{tx} tiles at {tuple(resolution)}")
+    _check_rows(name, ty, row0, resolution)
     if D not in (3, 4):
         raise ValueError(f"{name}: {D} channels; the kernel takes 3 or 4")
     if D == 4 and any(t.data_ptr() % 16 for t in (color, *planes)):
         raise ValueError(f"{name}: 4-channel planes must be 16-byte aligned")
+    for h in halo or ():
+        if tuple(h.shape[:2]) != (C, color.shape[2]):
+            raise ValueError(f"{name}: halo row {tuple(h.shape)} is not "
+                             f"({C}, {color.shape[2]}, ...)")
 
 
 @functools.lru_cache(maxsize=64)
@@ -439,16 +481,30 @@ def _aa_scratch(C, ty, tx, cap, device):
     return torch.zeros(n // 8, dtype=torch.int64, device=device) if n else None
 
 
-def aa_fwd(rec_bwd_b, counts_b, fid, z, color, resolution):
+def _ptrs(halo, n):
+    """The halo rows' data pointers, n Nones without a halo."""
+    return (None,) * n if halo is None else tuple(h.data_ptr() for h in halo)
+
+
+def aa_fwd(rec_bwd_b, counts_b, fid, z, color, resolution, row0=0,
+           halo=None):
     """Antialias forward: color (C, H, W, D) → antialiased (C, H, W, D).
-    fid and z (C, H, W) are the forward rasterizer's outputs."""
-    if _device_kind(rec_bwd_b, counts_b, fid, z, color) == "cpu":
-        return aa_fwd_plain(rec_bwd_b, counts_b, fid, z, color, resolution)
+    fid and z (C, H, W) are the forward rasterizer's outputs, of the H/32
+    tile rows from ``row0``.  With ``halo`` = (fid, z, colour) rows (C, W),
+    (C, W), (C, W, D) of the next row shard, returns (antialiased, the
+    share (C, W, D) that the next shard adds to its row 0)."""
+    if _device_kind(rec_bwd_b, counts_b, fid, z, color,
+                    *(halo or ())) == "cpu":
+        return aa_fwd_plain(rec_bwd_b, counts_b, fid, z, color, resolution,
+                            row0, halo)
     from .. import _cuda
+    planes = {} if halo is None else dict(zip(("hfid", "hz", "hcol"), halo))
     _check_cuda_inputs("aa_fwd", rec=rec_bwd_b, counts=counts_b, fid=fid,
-                       z=z, color=color)
+                       z=z, color=color, **planes)
     out = torch.empty_like(color)
-    _aa_checks("aa_fwd", rec_bwd_b, color, resolution, out)
+    share = None if halo is None else torch.empty_like(halo[2])
+    _aa_checks("aa_fwd", rec_bwd_b, color, resolution, out, row0=row0,
+               halo=halo)
     C, ty, tx, cap, _ = rec_bwd_b.shape
     height, width, D = color.shape[1:]
     scratch = _aa_scratch(C, ty, tx, cap, color.device)
@@ -456,11 +512,12 @@ def aa_fwd(rec_bwd_b, counts_b, fid, z, color, resolution):
     err = _cuda.library("aa_fwd")(
         rec_bwd_b.data_ptr(), counts_b.data_ptr(), fid.data_ptr(),
         z.data_ptr(), color.data_ptr(), out.data_ptr(),
-        None if scratch is None else scratch.data_ptr(),
-        C, ty, tx, cap, height, width, D, sxs, sys_, _stream())
+        None if scratch is None else scratch.data_ptr(), *_ptrs(halo, 3),
+        None if share is None else share.data_ptr(),
+        C, ty, tx, cap, height, width, D, int(row0), sxs, sys_, _stream())
     _cuda.check("aa_fwd", err)
     LAUNCHES["aa_fwd"] += 1
-    return out
+    return out if halo is None else (out, share)
 
 
 def _aa_fwd_combine(out, db_h, db_v):
@@ -468,13 +525,16 @@ def _aa_fwd_combine(out, db_h, db_v):
     return out + _shift_right_ch(db_h) + _shift_down_ch(db_v)
 
 
-def aa_fwd_plain(rec_bwd_b, counts_b, fid, z, color, resolution):
+def aa_fwd_plain(rec_bwd_b, counts_b, fid, z, color, resolution, row0=0,
+                 halo=None):
     """Plain PyTorch version of :func:`aa_fwd`."""
     C, ty, tx = counts_b.shape
-    px, py = _pixel_coords(ty, tx, resolution, rec_bwd_b.device)
+    _check_rows("aa_fwd", ty, row0, resolution)
+    px, py = _pixel_coords(ty, tx, resolution, rec_bwd_b.device, row0)
+    col_h = None if halo is None else halo[2]
     w = []
     for own, oth, dif, slot, fields, d_ex, d_ey, _ in _aa_directions(
-            rec_bwd_b, counts_b, fid, z, resolution):
+            rec_bwd_b, counts_b, fid, z, resolution, row0, halo):
         t, found, _, _ = _aa_pair_t(fields, px, py, d_ex, d_ey, oth)
         act = dif & (own > 0.0) & found & (slot >= 0)
         w.append((torch.where(act & (t < 0.5), 0.5 - t, 0.0),
@@ -482,23 +542,33 @@ def aa_fwd_plain(rec_bwd_b, counts_b, fid, z, color, resolution):
     (wa_h, wb_h), (wa_v, wb_v) = [(_from_tiles(a)[..., None],
                                    _from_tiles(b)[..., None]) for a, b in w]
     dh = _shift_left(color) - color
-    dv = _shift_up(color) - color
-    return _aa_fwd_combine(color + wa_h * dh + wa_v * dv, -wb_h * dh,
-                           -wb_v * dv)
+    dv = _shift_up(color, col_h) - color
+    db_v = -wb_v * dv
+    out = _aa_fwd_combine(color + wa_h * dh + wa_v * dv, -wb_h * dh, db_v)
+    return out if halo is None else (out, db_v[:, -1])
 
 
-def aa_bwd(rec_bwd_b, counts_b, fid, z, color, d_out, resolution):
+def aa_bwd(rec_bwd_b, counts_b, fid, z, color, d_out, resolution, row0=0,
+           halo=None):
     """Antialias backward.  Returns (d_color (C, H, W, D), dslot_aa
     (C, TY, TX, cap, 8) whose columns 0-5 are [dsx0 dsy0 dsx1 dsy1 dsx2
-    dsy2], summed per owner slot over both pair directions)."""
-    if _device_kind(rec_bwd_b, counts_b, fid, z, color, d_out) == "cpu":
+    dsy2], summed per owner slot over both pair directions), for the H/32
+    tile rows from ``row0``.  With ``halo`` = (fid, z, colour, d_out) rows
+    of the next row shard, also the share (C, W, D) of d_colour that the
+    next shard adds to its row 0."""
+    if _device_kind(rec_bwd_b, counts_b, fid, z, color, d_out,
+                    *(halo or ())) == "cpu":
         return aa_bwd_plain(rec_bwd_b, counts_b, fid, z, color, d_out,
-                            resolution)
+                            resolution, row0, halo)
     from .. import _cuda
+    planes = {} if halo is None else dict(zip(("hfid", "hz", "hcol",
+                                               "hdout"), halo))
     _check_cuda_inputs("aa_bwd", rec=rec_bwd_b, counts=counts_b, fid=fid,
-                       z=z, color=color, d_out=d_out)
+                       z=z, color=color, d_out=d_out, **planes)
     d_color = torch.empty_like(color)
-    _aa_checks("aa_bwd", rec_bwd_b, color, resolution, d_out, d_color)
+    share = None if halo is None else torch.empty_like(halo[2])
+    _aa_checks("aa_bwd", rec_bwd_b, color, resolution, d_out, d_color,
+               row0=row0, halo=halo)
     if d_out.shape != color.shape:
         raise ValueError(f"aa_bwd: d_out {tuple(d_out.shape)} is not the "
                          f"colour's shape {tuple(color.shape)}")
@@ -512,36 +582,40 @@ def aa_bwd(rec_bwd_b, counts_b, fid, z, color, d_out, resolution):
         rec_bwd_b.data_ptr(), counts_b.data_ptr(), fid.data_ptr(),
         z.data_ptr(), color.data_ptr(), d_out.data_ptr(), d_color.data_ptr(),
         dslot.data_ptr(), None if scratch is None else scratch.data_ptr(),
-        C, ty, tx, cap, height, width, D, sxs, sys_, _stream())
+        *_ptrs(halo, 4), None if share is None else share.data_ptr(),
+        C, ty, tx, cap, height, width, D, int(row0), sxs, sys_, _stream())
     _cuda.check("aa_bwd", err)
     LAUNCHES["aa_bwd"] += 1
-    return d_color, dslot
+    return (d_color, dslot) if halo is None else (d_color, dslot, share)
 
 
 def _aa_bwd_combine(acc, d_out, db_h, db_v):
     return acc + d_out + _shift_right_ch(db_h) + _shift_down_ch(db_v)
 
 
-def aa_bwd_plain(rec_bwd_b, counts_b, fid, z, color, d_out, resolution):
+def aa_bwd_plain(rec_bwd_b, counts_b, fid, z, color, d_out, resolution,
+                 row0=0, halo=None):
     """Plain PyTorch version of :func:`aa_bwd`."""
     C, ty, tx, cap, _ = rec_bwd_b.shape
     dev = rec_bwd_b.device
-    px, py = _pixel_coords(ty, tx, resolution, dev)
+    _check_rows("aa_bwd", ty, row0, resolution)
+    px, py = _pixel_coords(ty, tx, resolution, dev, row0)
+    col_h, dout_h = (None, None) if halo is None else halo[2:4]
     col_t = _to_tiles(color)
     dout_t = _to_tiles(d_out)
     acc = torch.zeros_like(col_t)
     dcolb, sums = [], []
     tile = torch.arange(C * ty * tx, device=dev).reshape(C, ty, tx, 1)
     for own, oth, dif, slot, fields, d_ex, d_ey, nb in _aa_directions(
-            rec_bwd_b, counts_b, fid, z, resolution):
+            rec_bwd_b, counts_b, fid, z, resolution, row0, halo):
         t, found, takes, geos = _aa_pair_t(fields, px, py, d_ex, d_ey, oth)
         act = dif & (own > 0.0) & found & (slot >= 0)
         lo = act & (t < 0.5)
         hi = act & (t >= 0.5)
         wa = torch.where(lo, 0.5 - t, 0.0)[..., None]
         wb = torch.where(hi, t - 0.5, 0.0)[..., None]
-        diff = _to_tiles(nb(color)) - col_t
-        doutn = _to_tiles(nb(d_out))
+        diff = _to_tiles(nb(color, col_h)) - col_t
+        doutn = _to_tiles(nb(d_out, dout_h))
         acc = acc - wa * dout_t + wb * doutn
         dcolb.append(wa * dout_t - wb * doutn)
         sel = torch.where(lo[..., None], dout_t,
@@ -577,6 +651,7 @@ def aa_bwd_plain(rec_bwd_b, counts_b, fid, z, color, d_out, resolution):
         sums.append(S)
     dslot = (sums[0] + sums[1]).reshape(C, ty, tx, cap, 6)
     dslot = torch.cat([dslot, torch.zeros_like(dslot[..., :2])], dim=-1)
+    db_v = _from_tiles(dcolb[1])
     d_color = _aa_bwd_combine(_from_tiles(acc), d_out,
-                              _from_tiles(dcolb[0]), _from_tiles(dcolb[1]))
-    return d_color, dslot
+                              _from_tiles(dcolb[0]), db_v)
+    return (d_color, dslot) if halo is None else (d_color, dslot, db_v[:, -1])

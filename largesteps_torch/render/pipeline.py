@@ -1,7 +1,7 @@
 """The fused render pipelines: setup, binning, the four per-tile kernels, and
 the glue that chains their gradients to vertices.
 
-Port of ``largesteps_tpu/render/pallas_core.py``, unsharded: the setup
+Port of ``largesteps_tpu/render/pallas_core.py``: the setup
 (``triangle_setup``/``_setup_core`` lines 102-190), the traced binning
 (``bin_triangles`` 193-242, ``suggest_cap`` and ``check_bin_overflow``
 525-545, ``_setup_and_bin`` 1172-1198), the large-F binning
@@ -10,7 +10,14 @@ Port of ``largesteps_tpu/render/pallas_core.py``, unsharded: the setup
 1201-1235, ``build_incidence`` 1238-1257, ``_scatter_via_faces`` and
 ``_scatter_via_slots`` 1260-1321), ``make_render_pipeline`` with and
 without precomputed bins (1903-2116) and the camera-sequential
-``make_render_pipeline_big`` (2134-2304).
+``make_render_pipeline_big`` (2134-2304), each also for one image-row shard
+(``row_shards``/``row_index``): the pipe bins or slices out the shard's
+tile rows (``bin_triangles``' ``ty_range``, ``local_bins``), runs
+the kernels with its first tile row, and swaps the antialias halo rows with
+the neighbouring shards of its mesh row (``_shift_up_halo`` and
+``_shift_down_ch_halo``), forward and backward.  Its images are the
+shard's rows; its vertex gradients the shard's share, which the renderer
+sums over the ranks.
 
 Layouts are the JAX package's, so tests compare like with like: records
 (C, TY, TX, cap, 32) with the column maps below, bins (C, TY, TX, cap) or
@@ -34,6 +41,7 @@ import torch
 
 from . import kernels
 from .kernels import TILE_H, TILE_W, BIG
+from ..parallel import distributed as pdist
 
 __all__ = ["triangle_setup", "bin_triangles", "setup_and_bin",
            "setup_from_bins", "bin_triangles_host", "bin_triangles_device",
@@ -140,7 +148,8 @@ def _setup_core(tri, A, opp1, fid, height, width, need_fwd=True):
     return rec_fwd, rec_bwd
 
 
-def bin_triangles(rec_fwd, v_clip, faces, height, width, cap):
+def bin_triangles(rec_fwd, v_clip, faces, height, width, cap,
+                  ty_range=None):
     """Fixed-capacity per-tile bins for every camera.
 
     The overlap test uses the 1 px expanded bbox, so the antialias kernels
@@ -148,8 +157,13 @@ def bin_triangles(rec_fwd, v_clip, faces, height, width, cap):
     by ymin (ties by face id); the kernels' (depth, fid) z-test makes the
     result independent of that order.  Returns (bins (C, TY, TX, cap) int64
     with −1 padding, counts (C, TY, TX) before clamping to ``cap``).
+    ``ty_range`` = (first tile row, TY) bins only those tile rows (a row
+    shard's).
     """
     ty, tx = height // TILE_H, width // TILE_W
+    row0 = 0
+    if ty_range is not None:
+        row0, ty = ty_range
     tri = v_clip[:, faces]
     w = tri[..., 3]
     safe_w = torch.where(w == 0, torch.ones_like(w), w)
@@ -162,7 +176,7 @@ def bin_triangles(rec_fwd, v_clip, faces, height, width, cap):
     valid = ymax > ymin                       # invalid: rigged empty range
 
     dev = v_clip.device
-    ty0 = (torch.arange(ty, dtype=torch.float32, device=dev)
+    ty0 = ((torch.arange(ty, dtype=torch.float32, device=dev) + row0)
            * TILE_H)[None, :, None, None]
     tx0 = (torch.arange(tx, dtype=torch.float32, device=dev)
            * TILE_W)[None, None, :, None]
@@ -185,13 +199,16 @@ def bin_triangles(rec_fwd, v_clip, faces, height, width, cap):
     return bins, counts
 
 
-def setup_and_bin(v_clip, faces, attrs, opp, height, width, cap):
+def setup_and_bin(v_clip, faces, attrs, opp, height, width, cap,
+                  ty_range=None):
     """Setup and binning of all cameras: (rec_fwd_b, rec_bwd_b) of shape
     (C, TY, TX, cap, 32), bins (C, TY, TX, cap) and counts (C, TY, TX)
-    int32, clamped to ``cap``."""
+    int32, clamped to ``cap``; TY tile rows from the first of ``ty_range``
+    where it is given."""
     rec_fwd, rec_bwd = triangle_setup(v_clip, faces, attrs, opp, height,
                                       width)
-    bins, counts = bin_triangles(rec_fwd, v_clip, faces, height, width, cap)
+    bins, counts = bin_triangles(rec_fwd, v_clip, faces, height, width, cap,
+                                 ty_range)
     C = v_clip.shape[0]
     cam = torch.arange(C, device=v_clip.device)[:, None, None, None]
     safe = torch.clamp(bins, min=0)
@@ -594,6 +611,14 @@ class RenderPipeline:
     backward gathers each face's slot sums (:func:`scatter_via_slots`).
     The bins take no gradient.
 
+    With ``row_shards=sp > 1`` the pipe renders row shard ``row_index`` of
+    every camera, the image's tile rows ``row_index · TY/sp`` onward, and
+    swaps the antialias halo rows with the other shards of ``mesh``'s row
+    (:class:`largesteps_torch.parallel.distributed.Mesh`; every rank of
+    that row calls the pipe).  ``bg`` and the images are the shard's rows;
+    precomputed bins cover the whole image, and the pipe slices its rows.
+    ``slots_k`` is for unsharded pipes only (as the JAX package's).
+
     ``ablate`` zeroes backward stages, to time each one's share
     (``benchmarks/bench.py``; JAX's ``make_render_pipeline(ablate=)``):
     ``"aabwd"`` skips aa_bwd (its per-slot sums are zero and the cotangent
@@ -604,7 +629,8 @@ class RenderPipeline:
     """
 
     def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
-                 cap=768, prebinned=False, slots_k=None, ablate=""):
+                 cap=768, prebinned=False, slots_k=None, ablate="",
+                 row_shards=1, row_index=0, mesh=None):
         if slots_k is not None and not prebinned:
             raise ValueError("slots_k needs prebinned bins")
         if ablate and ablate not in ABLATE:
@@ -618,6 +644,21 @@ class RenderPipeline:
         self.cap = int(cap)
         self.prebinned = bool(prebinned)
         self.slots_k = None if slots_k is None else int(slots_k)
+        ty_full = self.resolution[0] // TILE_H
+        self.row_shards, self.row_index = int(row_shards), int(row_index)
+        if self.row_shards > 1:
+            if ty_full % self.row_shards:
+                raise ValueError(f"{ty_full} tile rows do not divide into "
+                                 f"{self.row_shards} row shards")
+            if self.slots_k is not None:
+                raise ValueError("slots_k is for unsharded pipes only")
+            if mesh is None or mesh.sp != self.row_shards \
+                    or mesh.sp_index != self.row_index:
+                raise ValueError(f"row shard {self.row_index} of "
+                                 f"{self.row_shards} needs its mesh row")
+        self.mesh = mesh
+        self.ty = ty_full // self.row_shards      # tile rows of the shard
+        self.row0 = self.row_index * self.ty      # its first
         self._dev = {}
 
     def device_tables(self, device, n_verts):
@@ -650,15 +691,51 @@ class RenderPipeline:
         if got != shapes:
             raise ValueError(f"bins of shapes {got}; the pipe takes {shapes}")
 
+    def local_bins(self, bins, counts):
+        """The shard's tile rows of whole-image bins (C, T, cap) and counts
+        (C, T) (``pallas_core._slice_bin_rows``): the bins stay replicated
+        over a mesh row and each shard takes its rows."""
+        tx = self.resolution[1] // TILE_W
+        rows = slice(self.row0 * tx, (self.row0 + self.ty) * tx)
+        return bins[:, rows], counts[:, rows]
+
     def __call__(self, v_clip, attrs, bg=None, *binned):
         self.check_bins(v_clip.shape[0], binned)
         return _PipelineFn.apply(self, v_clip, attrs, bg, *binned)
 
 
+def _halo_rows(pipe, fid, z, comp):
+    """The down neighbours of the shard's last row, packed (C, W, 2 + D):
+    id, depth and colour of the next shard's first row, or of the shard's
+    own last row on the last shard (the image's edge replication)."""
+    first = torch.cat([fid[:, 0, :, None], z[:, 0, :, None], comp[:, 0]], -1)
+    got = pdist.from_next_row_shard(first.contiguous(), pipe.mesh)
+    if got is None:
+        got = torch.cat([fid[:, -1, :, None], z[:, -1, :, None],
+                         comp[:, -1]], -1)
+    return got
+
+
+def _unpack(hrow):
+    """The packed halo rows as the kernels take them: (fid, z, colour)."""
+    return (hrow[..., 0].contiguous(), hrow[..., 1].contiguous(),
+            hrow[..., 2:].contiguous())
+
+
+def _add_share(pipe, planes, share):
+    """Add the previous shard's share row to row 0 of ``planes`` in place;
+    every shard sends its own to the next."""
+    prev = pdist.to_next_row_shard(share, pipe.mesh)
+    if pipe.row_index > 0:
+        planes[:, 0] += prev
+
+
 def _forward_kernels(pipe, rfb, rbb, counts, bg):
-    """raster_fwd, composite and aa_fwd: (out, slot, fid, z, comp, cov)."""
-    u, v, z, fid, slot, c0, c1, c2 = kernels.raster_fwd(rfb, counts,
-                                                        pipe.resolution)
+    """raster_fwd, composite and aa_fwd: (out, slot, fid, z, comp, cov,
+    the packed halo rows of a row shard or None)."""
+    res = pipe.resolution
+    u, v, z, fid, slot, c0, c1, c2 = kernels.raster_fwd(rfb, counts, res,
+                                                        pipe.row0)
     color = torch.stack([c0, c1, c2], dim=-1)
     cov = (fid > 0.0)[..., None]
     if pipe.shading:
@@ -666,19 +743,35 @@ def _forward_kernels(pipe, rfb, rbb, counts, bg):
         comp = torch.where(cov, col4, bg).contiguous()
     else:
         comp = color
-    out = kernels.aa_fwd(rbb, counts, fid, z, comp, pipe.resolution)
-    return out, slot, fid, z, comp, cov
+    if pipe.row_shards == 1:
+        return (kernels.aa_fwd(rbb, counts, fid, z, comp, res), slot, fid, z,
+                comp, cov, None)
+    hrow = _halo_rows(pipe, fid, z, comp)
+    out, share = kernels.aa_fwd(rbb, counts, fid, z, comp, res, pipe.row0,
+                                _unpack(hrow))
+    _add_share(pipe, out, share)
+    return out, slot, fid, z, comp, cov, hrow
 
 
-def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g):
+def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g,
+                      hrow=None):
     """aa_bwd, raster_bwd and the chain to clip space: (table18 (C, TY,
-    TX, cap, 18), d_comp (C, H, W, D))."""
+    TX, cap, 18), d_comp (C, H, W, D)); ``hrow`` the forward's packed halo
+    rows of a row shard."""
     res = pipe.resolution
+    g = g.contiguous()
     if pipe.ablate == "aabwd":
         d_comp, dslot_aa = g, rbb.new_zeros((*rbb.shape[:-1], 8))
+    elif pipe.row_shards == 1:
+        d_comp, dslot_aa = kernels.aa_bwd(rbb, counts, fid, z, comp, g, res)
     else:
-        d_comp, dslot_aa = kernels.aa_bwd(rbb, counts, fid, z, comp,
-                                          g.contiguous(), res)
+        dout_h = pdist.from_next_row_shard(g[:, 0].contiguous(), pipe.mesh)
+        if dout_h is None:
+            dout_h = g[:, -1].contiguous()
+        d_comp, dslot_aa, share = kernels.aa_bwd(
+            rbb, counts, fid, z, comp, g, res, pipe.row0,
+            _unpack(hrow) + (dout_h,))
+        _add_share(pipe, d_comp, share)
     d_color = torch.where(cov, d_comp[..., :3], 0.0) if pipe.shading \
         else d_comp
     if pipe.ablate == "rbwd":
@@ -686,7 +779,7 @@ def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g):
     else:
         zeros = torch.zeros_like(fid)
         dslot = kernels.raster_bwd(rbb, counts, slot, d_color.contiguous(),
-                                   zeros, zeros, res)
+                                   zeros, zeros, res, pipe.row0)
     return chain_planes(dslot, dslot_aa, pipe.boost, rbb), d_comp
 
 
@@ -705,16 +798,16 @@ def _scatter(pipe, table18, bins, fslots, incidence, n_verts):
 
 
 def _tiled(pipe, n_cams, *tensors):
-    """(C, T, cap, ...) tensors → (C, TY, TX, cap, ...)."""
-    h, w = pipe.resolution
-    ty, tx = h // TILE_H, w // TILE_W
-    return [t.reshape(n_cams, ty, tx, *t.shape[2:]) for t in tensors]
+    """(C, T, cap, ...) tensors of the pipe's tile rows → (C, TY, TX, cap,
+    ...)."""
+    tx = pipe.resolution[1] // TILE_W
+    return [t.reshape(n_cams, pipe.ty, tx, *t.shape[2:]) for t in tensors]
 
 
 def _counts3(pipe, counts):
     """counts (C, T) → contiguous int32 (C, TY, TX), as the kernels take."""
-    h, w = pipe.resolution
-    return counts.reshape(counts.shape[0], h // TILE_H, w // TILE_W) \
+    return counts.reshape(counts.shape[0], pipe.ty,
+                          pipe.resolution[1] // TILE_W) \
         .to(torch.int32).contiguous()
 
 
@@ -726,6 +819,11 @@ def _d_bg(d_comp, cov, bg_shape):
     return d_bg.sum(dim=tuple(range(extra))) if extra else d_bg
 
 
+def _halo_or_empty(hrow, like):
+    """A packed halo row for save_for_backward (an empty tensor without)."""
+    return like.new_empty(0) if hrow is None else hrow
+
+
 class _PipelineFn(torch.autograd.Function):
 
     @staticmethod
@@ -734,31 +832,33 @@ class _PipelineFn(torch.autograd.Function):
         C = v_clip.shape[0]
         faces, opp, _ = pipe.device_tables(v_clip.device, v_clip.shape[1])
         if pipe.prebinned:
-            rfb, rbb = setup_from_bins(v_clip, faces, attrs, opp, binned[0],
+            bins, counts = pipe.local_bins(binned[0], binned[1])
+            rfb, rbb = setup_from_bins(v_clip, faces, attrs, opp, bins,
                                        height, width)
-            rfb, rbb, bins = _tiled(pipe, C, rfb, rbb, binned[0])
-            counts = _counts3(pipe, binned[1])
+            rfb, rbb, bins = _tiled(pipe, C, rfb, rbb, bins)
+            counts = _counts3(pipe, counts)
         else:
-            rfb, rbb, bins, counts = setup_and_bin(v_clip, faces, attrs, opp,
-                                                   height, width, pipe.cap)
-        out, slot, fid, z, comp, cov = _forward_kernels(pipe, rfb, rbb,
-                                                        counts, bg)
+            rfb, rbb, bins, counts = setup_and_bin(
+                v_clip, faces, attrs, opp, height, width, pipe.cap,
+                (pipe.row0, pipe.ty))
+        out, slot, fid, z, comp, cov, hrow = _forward_kernels(
+            pipe, rfb, rbb, counts, bg)
         ctx.pipe = pipe
         ctx.n_verts = v_clip.shape[1]
         ctx.n_binned = len(binned)
         ctx.bg_shape = None if bg is None else bg.shape
         fslots = binned[2:3]
         ctx.save_for_backward(rbb, bins, counts, slot, fid, z, comp, cov,
-                              *fslots)
+                              _halo_or_empty(hrow, fid), *fslots)
         return out
 
     @staticmethod
     def backward(ctx, g):
         pipe = ctx.pipe
-        rbb, bins, counts, slot, fid, z, comp, cov, *fslots = \
+        rbb, bins, counts, slot, fid, z, comp, cov, hrow, *fslots = \
             ctx.saved_tensors
         table18, d_comp = _backward_kernels(pipe, rbb, counts, slot, fid, z,
-                                            comp, cov, g)
+                                            comp, cov, g, hrow)
         _, _, incidence = pipe.device_tables(rbb.device, ctx.n_verts)
         dv_clip, d_attrs = _scatter(pipe, table18, bins, fslots, incidence,
                                     ctx.n_verts)
@@ -775,13 +875,17 @@ class RenderPipelineBig(RenderPipeline):
     through the four kernels (C = 1), so the binned tables of one camera are
     alive at a time.  The backward rebuilds each camera's backward records
     from the bins (``setup_from_bins(..., need_fwd=False)``) rather than
-    keeping them, and chains and scatters per camera."""
+    keeping them, and chains and scatters per camera.  Row shards as
+    :class:`RenderPipeline`'s."""
 
     def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
-                 cap=8192, slots_k=None, ablate=""):
+                 cap=8192, slots_k=None, ablate="", row_shards=1,
+                 row_index=0, mesh=None):
         super().__init__(faces, opp, resolution, shading=shading,
                          boost=boost, cap=cap, prebinned=True,
-                         slots_k=slots_k, ablate=ablate)
+                         slots_k=slots_k, ablate=ablate,
+                         row_shards=row_shards, row_index=row_index,
+                         mesh=mesh)
 
     def __call__(self, v_clip, attrs, bg=None, *binned):
         self.check_bins(v_clip.shape[0], binned)
@@ -799,7 +903,7 @@ class _BigFn(torch.autograd.Function):
         height, width = pipe.resolution
         C = v_clip.shape[0]
         faces, opp, _ = pipe.device_tables(v_clip.device, v_clip.shape[1])
-        bins, counts = binned[:2]
+        bins, counts = pipe.local_bins(*binned[:2])
         per_cam = []
         for i in range(C):
             rfb, rbb = setup_from_bins(v_clip[i:i + 1], faces, attrs, opp,
@@ -811,19 +915,22 @@ class _BigFn(torch.autograd.Function):
                                             bg_i))
         out, slot, fid, z, comp, cov = (torch.cat([p[k] for p in per_cam])
                                         for k in range(6))
+        hrow = None if pipe.row_shards == 1 \
+            else torch.cat([p[6] for p in per_cam])
         ctx.pipe = pipe
         ctx.n_binned = len(binned)
         ctx.bg_shape = None if bg is None else bg.shape
         ctx.save_for_backward(v_clip, attrs, slot, fid, z, comp, cov,
-                              *binned)
+                              _halo_or_empty(hrow, fid), *binned)
         return out
 
     @staticmethod
     def backward(ctx, g):
         pipe = ctx.pipe
         height, width = pipe.resolution
-        v_clip, attrs, slot, fid, z, comp, cov, bins, counts, *fslots = \
-            ctx.saved_tensors
+        (v_clip, attrs, slot, fid, z, comp, cov, hrow, bins, counts,
+         *fslots) = ctx.saved_tensors
+        bins, counts = pipe.local_bins(bins, counts)
         C, V = v_clip.shape[:2]
         faces, opp, incidence = pipe.device_tables(v_clip.device, V)
         dv_clip = torch.empty_like(v_clip)
@@ -837,7 +944,8 @@ class _BigFn(torch.autograd.Function):
             rbb, = _tiled(pipe, 1, rbb)
             table18, d_comp[one] = _backward_kernels(
                 pipe, rbb, _counts3(pipe, counts[one]), slot[one], fid[one],
-                z[one], comp[one], cov[one], g[one])
+                z[one], comp[one], cov[one], g[one],
+                hrow[one] if pipe.row_shards > 1 else None)
             bins4, = _tiled(pipe, 1, bins[one])
             dv1, da1 = _scatter(pipe, table18, bins4,
                                 [fs[one] for fs in fslots], incidence, V)

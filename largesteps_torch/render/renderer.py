@@ -9,8 +9,11 @@ silhouettes) → composite over the environment backgrounds → antialias, with
 ``render(..., bins=)`` for the large-F path; and ``"dense"`` (JAX's
 ``"xla"``), the capacity-free PyTorch rasterizer and antialias of
 :mod:`largesteps_torch.render.raster` and
-:mod:`largesteps_torch.render.antialias`, at any resolution.  Device meshes
-are a later slice (ROADMAP.md Queue 1).
+:mod:`largesteps_torch.render.antialias`, at any resolution.  A renderer
+cut to one rank's shard of a ``(dp, sp)`` mesh
+(:func:`largesteps_torch.parallel.sharding.shard_renderer`) draws that
+rank's cameras and rows and sums the gradients of its inputs over the
+ranks (JAX's ``renderer.py:172-239``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..parallel import distributed as pdist
 from .antialias import antialias, face_adjacency
 from .camera import persp_proj, build_mvps, project
 from .pipeline import (RenderPipeline, RenderPipelineBig, check_bin_overflow,
@@ -44,8 +48,8 @@ class Topology:
     def __init__(self, faces):
         self.faces = np.ascontiguousarray(np.asarray(faces), dtype=np.int32)
         self.opp = face_adjacency(self.faces)
-        # (res, shading, boost, cap, prebinned, slots_k, camera-sequential)
-        # -> pipeline
+        # (res, shading, boost, cap, prebinned, slots_k, camera-sequential,
+        # row shards, row index) -> pipeline
         self._pipe_cache = {}
         self._dense = {}        # device -> (faces, opp) tensors
 
@@ -163,6 +167,9 @@ class Renderer:
         self.sh_M = sh_matrices(envmap).to(self.device)
         self.bgs = render_backgrounds(envmap, self.view_mats, self.fov_x,
                                       self.res).to(self.device)
+        # a rank's shard (parallel.sharding.shard_renderer sets these)
+        self.mesh = None
+        self.row_shards, self.row_index = 1, 0
 
     @torch.no_grad()
     def check_overflow(self, v, topology: Topology, grow: bool = True) -> int:
@@ -177,6 +184,7 @@ class Renderer:
         faces = torch.as_tensor(topology.faces.astype(np.int64),
                                 device=self.device)
         occ = check_bin_overflow(project(v, self.mvps), faces, self.res)
+        occ = int(pdist.host_max([occ], self.mesh)[0])   # every rank's cameras
         fit = suggest_cap(occ)
         if grow:
             if fit > self.bin_cap:
@@ -194,10 +202,11 @@ class Renderer:
         pipe: when the batched pipe's working set would pass a quarter
         (``BATCHED_SHARE``) of the device's memory.  The working set, in
         float32 values, is C·T·cap·(32 + 32 + 32 + 8 + 18) + 2·C·F·32
-        (:func:`batched_bytes`) for C views of T tiles and F faces."""
+        (:func:`batched_bytes`) for C views of T tiles and F faces (the
+        rank's views and tile rows)."""
         h, w = self.res
-        need = batched_bytes(self.mvps.shape[0], (h // TILE_H) * (w // TILE_W),
-                             cap, n_faces)
+        tiles = (h // TILE_H // self.row_shards) * (w // TILE_W)
+        need = batched_bytes(self.mvps.shape[0], tiles, cap, n_faces)
         return need > BATCHED_SHARE * _device_bytes(self.device)
 
     def render(self, v, n, topology: Topology, bins=None):
@@ -207,7 +216,13 @@ class Renderer:
         ``bins``: precomputed ``(bins (C, T, cap), counts (C, T)[, fslots
         (C, F+1, K)])`` device tensors (the large-F path, tiles backend
         only; no gradient), in place of the traced per-step binning; the
-        pipe is chosen by :meth:`camera_sequential`."""
+        pipe is chosen by :meth:`camera_sequential`.  On a rank's shard the
+        images are the rank's cameras and rows, the bins the rank's cameras
+        (whole images; the pipe takes its rows), and the gradients of ``v``
+        and ``n`` the sums over every rank; the face→slot inverse is not
+        used there (JAX's sharded pipes scatter by faces)."""
+        if self.mesh is not None:
+            v, n = _SumGrads.apply(self.mesh, v, n)
         if self.backend == "dense":
             if bins is not None:
                 raise ValueError("bins are the tiles backend's")
@@ -216,21 +231,22 @@ class Renderer:
         fslots = None
         if prebinned:
             cap = int(bins[0].shape[-1])
-            if len(bins) > 2 and bins[2] is not None:
+            if len(bins) > 2 and bins[2] is not None and self.mesh is None:
                 fslots = bins[2]
             big = self.camera_sequential(cap, topology.n_faces)
         else:
             cap, big = self.bin_cap, False
         slots_k = None if fslots is None else int(fslots.shape[-1])
         key = (self.res, self.shading, self.boost, cap, prebinned, slots_k,
-               big)
+               big, self.row_shards, self.row_index)
         pipe = topology._pipe_cache.get(key)
         if pipe is None:
             kind = RenderPipelineBig if big else RenderPipeline
             kw = {} if big else {"prebinned": prebinned}
             pipe = kind(topology.faces, topology.opp, self.res,
                         shading=self.shading, boost=self.boost, cap=cap,
-                        slots_k=slots_k, **kw)
+                        slots_k=slots_k, row_shards=self.row_shards,
+                        row_index=self.row_index, mesh=self.mesh, **kw)
             topology._pipe_cache[key] = pipe
         extra = ()
         if prebinned:
@@ -256,3 +272,28 @@ class Renderer:
         col = interpolate(torch.ones_like(v), rast, faces)
         return antialias(col, rast, v_ndc, faces, opp, self.boost,
                          cap=self.aa_cap)
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity on the renderer's replicated inputs (v, n), whose
+    backward sums their gradients over every rank of the mesh: each rank's
+    images hold only its shard's share of them (``shard_map``'s ``psum`` of
+    replicated cotangents).  One all-reduce for both; every rank gets the
+    same bits, so the replicated state stays replicated."""
+
+    @staticmethod
+    def forward(ctx, mesh, v, n):
+        ctx.shapes, ctx.device = (v.shape, n.shape), v.device
+        return v.view_as(v), n.view_as(n)
+
+    @staticmethod
+    def backward(ctx, gv, gn):
+        sv, sn = ctx.shapes
+        if gv is None:
+            gv = torch.zeros(sv, device=ctx.device)
+        if gn is None:
+            gn = torch.zeros(sn, device=ctx.device)
+        flat = torch.cat([gv.reshape(-1), gn.reshape(-1)])
+        pdist.all_reduce(flat)
+        k = gv.numel()
+        return None, flat[:k].reshape(sv), flat[k:].reshape(sn)

@@ -49,6 +49,11 @@ cotangents from a numpy seed.
   field items; both wrappers refusing inputs that do not start on 16
   bytes.
 * The dense renderer on the card against the same render on the CPU.
+* Row shards: the four kernels on 2 and 4 row shards of a 256² view (at
+  the fitted cap and at 9216), with their tile-row offset and halo rows,
+  against their plain versions and, reassembled, the unsharded kernels;
+  two gloo ranks sharing the card render one row shard each, against the
+  unsharded render.
 * Remeshing: the driver with a remesh before the first step (``smooth``
   off, so both remesh the source mesh itself) on the card against the same
   run on the CPU, through the tile kernels; the host Cholesky solver on
@@ -922,3 +927,163 @@ def test_gpu_laplacian_cot_matches_cpu():
         out[d.type] = (L.vals.detach(), M.vals.detach(), vt.grad)
     for got, want in zip(out["cuda"], out["cpu"]):
         assert _max_abs(got.cpu(), want) <= 1e-5 * float(want.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# row shards: the kernels' tile-row offset and halo rows, a 2-rank render
+# ---------------------------------------------------------------------------
+
+def _shard_args(c, s, sp, D):
+    """Row shard s of sp of a case: its tile rows, planes and halo rows
+    (the next shard's first rows; its own last on the last shard)."""
+    res = c["res"][0]
+    tyl, hl = res // 32 // sp, res // sp
+    tiles, rows = slice(s * tyl, (s + 1) * tyl), slice(s * hl, (s + 1) * hl)
+    nxt = rows.stop - 1 if s == sp - 1 else rows.stop
+    T = lambda a, sl: a[:, sl].contiguous()
+    col, d_out = c["col4"][..., :D], c["d_out"][..., :D]
+    fid, z = c["fwd"][3], c["fwd"][2]
+    halo = tuple(a[:, nxt].contiguous() for a in (fid, z, col))
+    return {"row0": s * tyl, "rfb": T(c["rfb"], tiles),
+            "rbb": T(c["rbb"], tiles), "counts": T(c["counts"], tiles),
+            "fid": T(fid, rows), "z": T(z, rows), "col": T(col, rows),
+            "d_out": T(d_out, rows), "slot": T(c["fwd"][4], rows),
+            "d_col": T(c["d_col"], rows), "d_u": T(c["d_u"], rows),
+            "d_v": T(c["d_v"], rows), "halo": halo,
+            "halo_b": halo + (d_out[:, nxt].contiguous(),), "rows": rows}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,sp", [("fit", 2), ("fit", 4), (9216, 2)],
+                         ids=["sp2", "sp4", "sp2_9216"])
+@pytest.mark.parametrize("D", [4, 3])            # shaded, silhouette
+def test_gpu_kernels_row_shards(cap, sp, D):
+    """The four kernels on row shards of a 256² view (a shard with row0 > 0
+    and the last one among them), with halo rows, against their plain
+    versions on the same shard; the shards, their shares added, give the
+    unsharded kernels' planes."""
+    c = _build(256, cap)
+    res = c["res"]
+    fid, z = c["fwd"][3], c["fwd"][2]
+    col = c["col4"][..., :D].contiguous()
+    d_out = c["d_out"][..., :D].contiguous()
+    full_out = K.aa_fwd(c["rbb"], c["counts"], fid, z, col, res)
+    full_dc, _ = K.aa_bwd(c["rbb"], c["counts"], fid, z, col, d_out, res)
+    outs, dcs = [], []
+    for s in range(sp):
+        a = _shard_args(c, s, sp, D)
+        got = K.raster_fwd(a["rfb"], a["counts"], res, a["row0"])
+        want = K.raster_fwd_plain(a["rfb"], a["counts"], res, a["row0"])
+        assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+        for g, w, full in zip(got, want, c["fwd"]):
+            assert _max_abs(g, w) < 1e-6
+            assert _max_abs(g, full[:, a["rows"]]) < 1e-6
+        plane = (a["rbb"], a["counts"], a["fid"], a["z"], a["col"])
+        o, sh = K.aa_fwd(*plane, res, a["row0"], a["halo"])
+        ow, shw = K.aa_fwd_plain(*plane, res, a["row0"], a["halo"])
+        assert _max_abs(o, ow) < 1e-6 and _max_abs(sh, shw) < 1e-6
+        dc, ds, dsh = K.aa_bwd(*plane, a["d_out"], res, a["row0"],
+                               a["halo_b"])
+        dcw, dsw, dshw = K.aa_bwd_plain(*plane, a["d_out"], res, a["row0"],
+                                        a["halo_b"])
+        assert _max_abs(dc, dcw) < 1e-6 and _max_abs(dsh, dshw) < 1e-6
+        assert _max_abs(ds, dsw) <= 1e-5 * float(dsw.abs().max())
+        rb = K.raster_bwd(a["rbb"], a["counts"], a["slot"], a["d_col"],
+                          a["d_u"], a["d_v"], res, a["row0"])
+        rbw = K.raster_bwd_plain(a["rbb"], a["counts"], a["slot"],
+                                 a["d_col"], a["d_u"], a["d_v"], res,
+                                 a["row0"])
+        assert _max_abs(rb, rbw) <= 1e-5 * float(rbw.abs().max())
+        if s > 0:
+            o[:, 0] += outs[-1][1]
+            dc[:, 0] += dcs[-1][1]
+        outs.append((o, sh))
+        dcs.append((dc, dsh))
+    assert _max_abs(torch.cat([o for o, _ in outs], 1), full_out) < 1e-6
+    assert _max_abs(torch.cat([d for d, _ in dcs], 1), full_dc) < 1e-6
+
+
+def two_rank_render(rank, world):
+    """A 2-view 256² render on the card, sharded dp = 1 × sp = 2 (gloo,
+    ranks sharing the card): the whole images and v's gradient."""
+    from largesteps_torch.parallel.sharding import (gather_images,
+                                                    make_mesh,
+                                                    shard_renderer)
+    img, gv, r = _gpu_render(lambda r: shard_renderer(r, make_mesh(1, 2)))
+    return {"img": gather_images(img, r), "gv": gv,
+            "launches": dict(K.LAUNCHES)}
+
+
+def _gpu_render(shard=None):
+    """Images and v's gradient of icosphere-4 in 2 views of 256² on the
+    card, the renderer cut by ``shard``; a seeded weighting of the
+    images."""
+    from largesteps_torch.ops.normals import (compute_face_normals,
+                                              compute_vertex_normals)
+    from largesteps_torch.render.renderer import Topology
+    s = make_scene(source=("icosphere", 4), target=("gourd", 2), n_views=2,
+                   res=256)
+    r = Renderer(s, boost=3.0, device="cuda")
+    if shard is not None:
+        shard(r)
+    f = s["mesh-source"]["faces"]
+    v = torch.tensor(s["mesh-source"]["vertices"], device="cuda",
+                     requires_grad=True)
+    with torch.no_grad():
+        n = compute_vertex_normals(v, f, compute_face_normals(v, f))
+    topo = Topology(f)
+    r.check_overflow(v.detach(), topo)
+    img = r.render(v, n, topo)
+    w = np.random.default_rng(2).normal(size=(2, 256, 256, 4))
+    if r.mesh is not None:
+        w = w[r.cam_slice, r.row_slice]
+    (img * torch.as_tensor(w.astype(np.float32), device="cuda")).sum() \
+        .backward()
+    return img.detach(), v.grad.cpu().numpy(), r
+
+
+@pytest.mark.gpu
+def test_gpu_two_rank_render():
+    """Two gloo ranks sharing the card render one image-row shard each
+    through the kernels (halo rows host-staged between them): the gathered
+    images equal the unsharded render on the card (1e-5), v's gradient is
+    the same on both ranks and 1e-4 × max|g| of the unsharded one."""
+    from largesteps_torch.parallel.distributed import launch
+    _card()
+    img, gv, _ = _gpu_render()
+    got = launch(two_rank_render, 2, device="cuda", timeout=240.0)
+    for g in got:
+        assert all(g["launches"][k] >= 1 for k in K.LAUNCHES)
+        assert _max_abs(torch.as_tensor(g["img"]), img.cpu()) < 1e-5
+        np.testing.assert_array_equal(g["gv"], got[0]["gv"])
+        assert np.abs(g["gv"] - gv).max() <= 1e-4 * np.abs(gv).max()
+
+
+def two_rank_driver(rank, world, solver):
+    """5 steps of the driver on the card, 2 views of 256², sharded dp = 1 ×
+    sp = 2."""
+    from largesteps_torch.driver import optimize_shape
+    s = make_scene(source=("icosphere", 4), target=("gourd", 4), n_views=2,
+                   res=256)
+    r = optimize_shape(s, {"steps": 5, "step_size": 0.03, "lambda": 19.0,
+                           "boost": 3, "solver": solver,
+                           "sharding": {"dp": 1, "sp": 2}}, device="cuda")
+    return r["v_final"], r["losses"], r["prof"].get("solve_iters")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("solver", ["CG", "Cholesky"])
+def test_gpu_two_rank_driver(solver):
+    """Two gloo ranks sharing the card run the sharded driver: the same
+    final vertices, losses and CG iterations, bit for bit, on both.  The
+    replicated work adds with float atomics on the card, so a CG solve
+    starts from rank 0's right-hand side and another solver's solutions
+    are rank 0's."""
+    from largesteps_torch.parallel.distributed import launch
+    _card()
+    (v0, l0, it0), (v1, l1, it1) = launch(two_rank_driver, 2, device="cuda",
+                                          args=(solver,), timeout=240.0)
+    np.testing.assert_array_equal(v0, v1)
+    np.testing.assert_array_equal(l0, l1)
+    np.testing.assert_array_equal(it0, it1)
+    assert np.isfinite(l0).all() and l0[-1, 0] < l0[0, 0]

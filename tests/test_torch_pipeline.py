@@ -172,7 +172,10 @@ def test_port_checkpoint_resumes_in_port(scene, tmp_path):
                                     {"host_bin_faces": 100,   # row-sharded
                                      "sharding": {"dp": 1, "sp": 2}}])
 def test_unported_driver_options_raise(scene, params):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Sharding runs on a process group of dp · sp ranks
+    (``tests/test_torch_sharding.py``); without one the driver raises
+    rather than run on one rank."""
+    with pytest.raises(RuntimeError, match="process group"):
         optimize_shape(scene, {"steps": 1, **params}, device="cpu")
 
 

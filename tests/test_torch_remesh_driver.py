@@ -190,7 +190,10 @@ def test_old_epoch_freed_before_the_new_one(scene, monkeypatch):
 
 
 def test_sharding_still_raises(scene):
-    with pytest.raises(NotImplementedError, match="sharding"):
+    """Sharding runs on a process group of ranks
+    (``tests/test_torch_sharding.py``); without one, a remeshing run asked
+    to shard raises."""
+    with pytest.raises(RuntimeError, match="sharding needs"):
         optimize_shape(scene, {"steps": 1, "remesh": 0,
                                "sharding": {"dp": 2}}, device="cpu")
 
