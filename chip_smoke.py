@@ -41,7 +41,8 @@ of ``torch.distributed`` sharing the card over gloo, spawned by
 ``largesteps_torch.parallel.distributed.launch``: sharded renders at sp = 2
 and 4 against the unsharded one, and three driver legs, the main path
 under ``"CG"``, the viewpoints figure's ``views_16_ours`` and the teaser's
-``ours`` at nefertiti, beside their unsharded runs; one NCCL rank) and the
+``ours`` at nefertiti, beside their unsharded runs; one NCCL rank; two
+NCCL ranks on the card, which NCCL must refuse) and the
 port's benchmark (``bench``: the functions of
 ``largesteps_torch.benchmarks.bench``, the nefertiti line at 10 steps, the
 sharded-CG lines), the tile kernels' launches counted around each.
@@ -106,6 +107,11 @@ FIT_OURS_MAX = 1.25 * JAX_SUZANNE["ours"]
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+    if obj.get("passed") is False:
+        # a failed check also on standard error, whose end outlives a long
+        # standard output
+        print(f"chip_smoke: failed {json.dumps(obj)[:800]}", file=sys.stderr,
+              flush=True)
 
 
 def smi() -> str:
@@ -1610,10 +1616,9 @@ def _shard_render(sharding):
         rfb, _, _, counts = setup_and_bin(
             project(v, r.mvps), faces, sh_eval(r.sh_M, n) / np.pi,
             torch.as_tensor(topo.opp.astype(np.int64), device=dev), 256,
-            256, r.bin_cap, (r.row_index * 8 // r.row_shards,
+            256, r.bin_cap, (r.row_slice.start // TILE_H,
                              8 // r.row_shards))
-        fid = K.raster_fwd(rfb, counts, r.res,
-                           r.row_index * 8 // r.row_shards)[3]
+        fid = K.raster_fwd(rfb, counts, r.res, r.row_slice.start // TILE_H)[3]
     img, fid = img.detach(), fid[..., None]
     if r.mesh is not None:
         img, fid = gather_images(img, r), gather_images(fid, r)
@@ -1691,6 +1696,34 @@ def _shard_rank(rank, world, jobs):
     return out
 
 
+def _nccl_pair_rank(rank, world):
+    """One all-reduce of two NCCL ranks on one card, which NCCL is
+    expected to refuse."""
+    import torch.distributed as dist
+    t = torch.ones(1, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return float(t)
+
+
+def _nccl_pair_refused(card):
+    """Whether NCCL refuses two ranks on one card, as the gloo transport of
+    ranks that share a card assumes: the refusal's line of the ranks'
+    standard error, or None where the all-reduce ran."""
+    from largesteps_torch.parallel.distributed import RankFailed, launch
+    line = None
+    try:
+        launch(_nccl_pair_rank, 2, backend="nccl", device="cuda",
+               timeout=90.0)
+    except RankFailed as e:
+        line = next((ln.strip() for ln in str(e).splitlines()
+                     if "Duplicate GPU" in ln), str(e).splitlines()[0])
+    refused = line is not None and "Duplicate GPU" in line
+    emit({"phase": "sharding_nccl_pair", "ranks": 2, "refused": refused,
+          "line": line, "card": card})
+    return refused
+
+
 def _halo_kernels(m, sp):
     """The four kernels on row shards 1 and sp − 1 of the main path's
     inputs (a shard with row0 > 0 and the last one), with the tile-row
@@ -1762,9 +1795,11 @@ def phase_sharding(card):
     (host bins sliced to rows, rebins decided together): the first loss
     within 1e-4 relative of the unsharded run's, every loss finite and
     falling and within 5e-2 relative, the final vertices the same bits on
-    every rank, a rebin in the teaser leg on the same steps on every rank;
+    every rank, a rebin in the teaser leg on the same steps on every rank
+    and in the unsharded run;
     (d) the main path sharded at 5 steps with its collectives timed
-    (transport share), and one NCCL rank (world size 1) on the card.  The
+    (transport share), one NCCL rank (world size 1) on the card, and two
+    NCCL ranks on the one card, which NCCL must refuse.  The
     ranks share the card (gloo, host-staged halos): their it/s measure the
     plumbing, not a multi-card speed-up."""
     from largesteps_torch.parallel.distributed import launch
@@ -1798,6 +1833,7 @@ def phase_sharding(card):
                      timeout=200.0, args=(
                          [("nccl", "leg", ("main_path", {"dp": 1}))],))
     launch_s = time.perf_counter() - t0
+    checks["nccl_pair_refused"] = _nccl_pair_refused(card)
 
     ref = single["render"]
     for world, name in ((2, "render"), (4, "render4")):
@@ -1831,7 +1867,10 @@ def phase_sharding(card):
               and all(rb == rebins[0] for rb in rebins)
               and all(n >= 1 for g in got for n in g["launches"].values()))
         if leg == "teaser":
-            ok = ok and len(rebins[0]) >= 1
+            # the rebin decisions lag a fixed step, so the unsharded run
+            # rebins on the same steps
+            ok = ok and len(rebins[0]) >= 1 \
+                and rebins[0] == want["rebin_steps"]
         checks[leg] = ok
         launches[leg] = [g["launches"] for g in got]
         emit({"phase": "sharding_leg", "leg": leg, "passed": ok,
@@ -1847,6 +1886,7 @@ def phase_sharding(card):
               "peak_bytes": [g["peak_bytes"] for g in got],
               "unsharded_peak_bytes": want["peak_bytes"],
               "solver": got[0]["solver"], "rebin_steps": rebins[0],
+              "unsharded_rebin_steps": want["rebin_steps"],
               "layout": [g["sharding"] for g in got],
               "launches": launches[leg], "card": card})
     tr = [r["transport"] for r in runs[2]]

@@ -226,10 +226,16 @@ def _cg_system(dev):
     return M, to_differential(M, torch.as_tensor(v, device=dev))
 
 
+CG_REPEATS = 5
+
+
 def _cg_ms(fn, dev):
-    """Milliseconds of one call of ``fn`` after a warm-up call."""
+    """Milliseconds of a call of ``fn``: the median of ``CG_REPEATS`` timed
+    calls after a warm-up call (each solve waits on the host for its
+    stopping tests, so one call's time swings with the host's load)."""
     fn()
-    return _seconds(fn, 1, dev) * 1e3
+    return float(np.median([_seconds(fn, 1, dev)
+                            for _ in range(CG_REPEATS)])) * 1e3
 
 
 def _sharded_cg_rank(rank, world, device):

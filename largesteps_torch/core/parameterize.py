@@ -34,8 +34,15 @@ def clear_cache():
 
 
 def to_differential(M: SparseCOO, v):
-    """u = M v."""
-    return coo_matvec(M, v)
+    """u = M v, summed on the host for a card's tensors and moved back.  On
+    the card ``index_add_`` adds with float atomics, so that u, the start of
+    the optimization, differed in its last bits from run to run and from
+    rank to rank, and the optimizer grows such a difference into a
+    different fit; the host's sum is the same in every run."""
+    if v.device.type == "cpu":
+        return coo_matvec(M, v)
+    host = SparseCOO(M.structure, M.vals.cpu())
+    return coo_matvec(host, v.cpu()).to(v.device)
 
 
 def get_solver(M: SparseCOO, method: str = "Cholesky"):

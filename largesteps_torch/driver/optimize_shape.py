@@ -14,9 +14,11 @@ elsewhere.  On the tiles, meshes of ``host_bin_faces`` faces or more take
 the large-F path: bins computed on the host at epoch build with a
 ``rebin_margin`` px bbox expansion, recomputed on the device every
 ``rebin_every`` steps or as soon as a vertex has moved margin/2 px since
-(``rebin_auto``; the step emits the
-displacement, which the host reads only once the step has run).  At most
-``max_inflight`` steps are queued on the device.
+(``rebin_auto``; the step emits the displacement, which the host reads
+one step late: before step i it waits for the displacements of the steps
+up to i − 2, which have run by then unless the card is two steps behind,
+so the rebins fall on the same steps whatever the host's timing).  At
+most ``max_inflight`` steps are queued on the device.
 
 ``scene`` is a scene dict or the path of a scene XML file.  The optimizer
 is AdamUniform, plain Adam or a callable (see :func:`_make_optimizer`).
@@ -46,7 +48,10 @@ renderer's inputs summed over the ranks.  The parameters, the optimizer,
 the solver (``"CG"`` takes the edge-sharded ``ShardedCGSolver``), the
 remesher and the checkpoints (written by rank 0) see replicated state, and
 the host decisions that could part the ranks (a rebin, its route, a time
-budget's end) are taken together.  Every rank returns the same result.
+budget's end) are taken together.  What the card's float atomics could
+part, the ranks take from rank 0: the solutions of a solve, or with
+``smooth`` off the coordinates' gradients.  Every rank returns the same
+result.
 """
 from __future__ import annotations
 
@@ -119,9 +124,7 @@ def default_params():
                                 # displacement since the bins passes margin/2
         "cull_backfaces": False,  # drop back-facing triangles from those bins
                                   # (closed meshes only)
-        "max_inflight": 8,      # most steps queued on the device there, so
-                                # the displacement that triggers a rebin is
-                                # read while it is fresh
+        "max_inflight": 8,      # most steps queued on the device there
         "checkpoint_every": 0,  # steps between checkpoints (0 = off)
         "checkpoint_path": None,
         "resume": None,         # checkpoint to resume from
@@ -147,11 +150,6 @@ def _mark(dev):
     e = torch.cuda.Event()
     e.record()
     return e
-
-
-def _ready(event) -> bool:
-    """Whether the work behind ``event`` has run, without waiting."""
-    return event is None or event.query()
 
 
 def _to_host(t):
@@ -357,29 +355,32 @@ def _rebin(st, p, renderer, v_render):
 
 def _rebin_due(st, p, since, disp_q) -> bool:
     """Whether to rebin now: ``rebin_every`` steps since the last rebin, or
-    (``rebin_auto``) a step that has run moved a vertex more than margin/2
-    px since the bins were made.  Reads only the host copies of the
-    displacements whose steps have run, oldest first, and stops at the
-    first still queued."""
-    if p["rebin_every"] and since >= int(p["rebin_every"]):
-        return True
+    (``rebin_auto``) a step moved a vertex more than margin/2 px since the
+    bins were made.  Reads the host copies of the displacements of every
+    queued step but the last, oldest first, waiting for each: a fixed lag
+    of one step, so that the decision does not depend on how far the card
+    has got (reading whichever had run made the rebin steps, and so the
+    fit, vary from run to run), and one that seldom waits."""
+    due = bool(p["rebin_every"]) and since >= int(p["rebin_every"])
     if not p["rebin_auto"]:
-        return False
-    due = False
-    while disp_q and _ready(disp_q[0][1]):
-        d = float(disp_q.popleft()[0])
+        return due
+    while len(disp_q) > 1:
+        disp, event = disp_q.popleft()
+        _wait(event)
+        d = float(disp)
         st.max_window_disp = max(st.max_window_disp, d)
         due = due or d > 0.5 * float(p["rebin_margin"])
     return due
 
 
 def _bins_overflowed(st) -> bool:
-    """Whether the last device rebin's bins overflowed their cap, as far as
-    is known without waiting: a rebin whose occupancy has not been read yet
-    counts as not overflowed.  An overflow sends this rebin to the host,
-    which grows the cap."""
-    if st.pending_occ is None or not _ready(st.pending_occ[1]):
+    """Whether the last device rebin's bins overflowed their cap (waiting
+    for its occupancy, queued before the steps since, so that the answer
+    does not depend on the host's timing).  An overflow sends this rebin
+    to the host, which grows the cap."""
+    if st.pending_occ is None:
         return False
+    _wait(st.pending_occ[1])
     occ = int(st.pending_occ[0])
     st.pending_occ = None
     if occ > st.bin_cap:
@@ -554,6 +555,12 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
             loss = im_loss + reg * reg_loss
         with _span("backward"):
             loss.backward()
+            if mesh is not None and not p["smooth"]:
+                # no solve hands out rank 0's values here, and on the card
+                # the coordinates' gradients add with float atomics (the
+                # duplicate gather, the normals, L's matvec), which part
+                # the ranks by ulps: the step takes rank 0's
+                pdist.broadcast(theta["u"].grad)
         # always log the bilaplacian magnitude, like reference main.py:200
         logged = (im_loss.detach(), Lv.detach().square().mean())
         if mesh is not None:
@@ -713,7 +720,7 @@ def _prepare(scene, p, dev) -> _Run:
         renderer = Renderer(scene, shading=p["shading"], boost=p["boost"],
                             chunk=p["raster_chunk"], device=dev)
         if mesh is not None:
-            shard_renderer(renderer, mesh, shard_rows=mesh.sp > 1)
+            shard_renderer(renderer, mesh)
         ref_topo = Topology(f_ref)
         t0 = time.perf_counter()
         if renderer.backend == "tiles" \

@@ -49,14 +49,13 @@ def make_mesh(dp: int | None = None, sp: int = 1) -> Mesh:
     return global_mesh(sp)
 
 
-def shard_layout(n_cams: int, res, backend: str, mesh: Mesh,
-                 shard_rows: bool = True):
+def shard_layout(n_cams: int, res, backend: str, mesh: Mesh):
     """(row_shards, camera slice, row slice) of this rank: the rule of the
     module's note.  Raises where the cameras do not divide."""
     sp = mesh.sp
     ty_full = res[0] // TILE_H
-    rows = (backend == "tiles" and shard_rows and sp > 1
-            and ty_full % sp == 0 and ty_full >= sp)
+    rows = (backend == "tiles" and sp > 1 and ty_full % sp == 0
+            and ty_full >= sp)
     blocks, block = (mesh.dp, mesh.dp_index) if rows \
         else (mesh.size, mesh.rank)
     if n_cams % blocks:
@@ -69,20 +68,19 @@ def shard_layout(n_cams: int, res, backend: str, mesh: Mesh,
     return sp, cams, slice(mesh.sp_index * h, (mesh.sp_index + 1) * h)
 
 
-def shard_renderer(renderer, mesh: Mesh, shard_rows: bool = True):
+def shard_renderer(renderer, mesh: Mesh):
     """Cut a Renderer's per-camera constants to this rank's shard in place
     and attach the mesh, so that ``render`` draws the rank's cameras (and
     rows) and sums its inputs' gradients over the ranks.  Sets
-    ``row_shards``, ``row_index``, ``cam_slice`` and ``row_slice`` (of the
-    whole images)."""
+    ``row_shards``, ``cam_slice`` and ``row_slice`` (of the whole
+    images)."""
     n_cams = renderer.mvps.shape[0]
     rs, cams, rows = shard_layout(n_cams, renderer.res, renderer.backend,
-                                  mesh, shard_rows)
+                                  mesh)
     renderer.mvps = renderer.mvps[cams].contiguous()
     renderer.bgs = renderer.bgs[cams, rows].contiguous()
     renderer.mesh = mesh
     renderer.row_shards = rs
-    renderer.row_index = mesh.sp_index if rs > 1 else 0
     renderer.cam_slice, renderer.row_slice = cams, rows
     return renderer
 

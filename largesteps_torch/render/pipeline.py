@@ -11,7 +11,7 @@ Port of ``largesteps_tpu/render/pallas_core.py``: the setup
 ``_scatter_via_slots`` 1260-1321), ``make_render_pipeline`` with and
 without precomputed bins (1903-2116) and the camera-sequential
 ``make_render_pipeline_big`` (2134-2304), each also for one image-row shard
-(``row_shards``/``row_index``): the pipe bins or slices out the shard's
+(given a mesh of ``sp > 1``): the pipe bins or slices out the shard's
 tile rows (``bin_triangles``' ``ty_range``, ``local_bins``), runs
 the kernels with its first tile row, and swaps the antialias halo rows with
 the neighbouring shards of its mesh row (``_shift_up_halo`` and
@@ -611,12 +611,13 @@ class RenderPipeline:
     backward gathers each face's slot sums (:func:`scatter_via_slots`).
     The bins take no gradient.
 
-    With ``row_shards=sp > 1`` the pipe renders row shard ``row_index`` of
-    every camera, the image's tile rows ``row_index · TY/sp`` onward, and
-    swaps the antialias halo rows with the other shards of ``mesh``'s row
-    (:class:`largesteps_torch.parallel.distributed.Mesh`; every rank of
-    that row calls the pipe).  ``bg`` and the images are the shard's rows;
-    precomputed bins cover the whole image, and the pipe slices its rows.
+    With a ``mesh`` (:class:`largesteps_torch.parallel.distributed.Mesh`)
+    of ``sp > 1`` the pipe renders row shard ``s = mesh.sp_index`` of
+    ``mesh.sp`` of every camera, the image's tile rows ``s · TY/sp``
+    onward, and swaps the antialias halo rows with the other shards of its
+    mesh row (every rank of that row calls the pipe).  ``bg`` and the
+    images are the shard's rows; precomputed bins cover the whole image,
+    and the pipe slices its rows.
     ``slots_k`` is for unsharded pipes only (as the JAX package's).
 
     ``ablate`` zeroes backward stages, to time each one's share
@@ -630,7 +631,7 @@ class RenderPipeline:
 
     def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
                  cap=768, prebinned=False, slots_k=None, ablate="",
-                 row_shards=1, row_index=0, mesh=None):
+                 mesh=None):
         if slots_k is not None and not prebinned:
             raise ValueError("slots_k needs prebinned bins")
         if ablate and ablate not in ABLATE:
@@ -645,18 +646,15 @@ class RenderPipeline:
         self.prebinned = bool(prebinned)
         self.slots_k = None if slots_k is None else int(slots_k)
         ty_full = self.resolution[0] // TILE_H
-        self.row_shards, self.row_index = int(row_shards), int(row_index)
+        self.mesh = mesh
+        self.row_shards = 1 if mesh is None else mesh.sp
+        self.row_index = 0 if mesh is None else mesh.sp_index
         if self.row_shards > 1:
             if ty_full % self.row_shards:
                 raise ValueError(f"{ty_full} tile rows do not divide into "
                                  f"{self.row_shards} row shards")
             if self.slots_k is not None:
                 raise ValueError("slots_k is for unsharded pipes only")
-            if mesh is None or mesh.sp != self.row_shards \
-                    or mesh.sp_index != self.row_index:
-                raise ValueError(f"row shard {self.row_index} of "
-                                 f"{self.row_shards} needs its mesh row")
-        self.mesh = mesh
         self.ty = ty_full // self.row_shards      # tile rows of the shard
         self.row0 = self.row_index * self.ty      # its first
         self._dev = {}
@@ -879,13 +877,10 @@ class RenderPipelineBig(RenderPipeline):
     :class:`RenderPipeline`'s."""
 
     def __init__(self, faces, opp, resolution, shading=True, boost=1.0,
-                 cap=8192, slots_k=None, ablate="", row_shards=1,
-                 row_index=0, mesh=None):
+                 cap=8192, slots_k=None, ablate="", mesh=None):
         super().__init__(faces, opp, resolution, shading=shading,
                          boost=boost, cap=cap, prebinned=True,
-                         slots_k=slots_k, ablate=ablate,
-                         row_shards=row_shards, row_index=row_index,
-                         mesh=mesh)
+                         slots_k=slots_k, ablate=ablate, mesh=mesh)
 
     def __call__(self, v_clip, attrs, bg=None, *binned):
         self.check_bins(v_clip.shape[0], binned)

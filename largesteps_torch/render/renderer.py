@@ -169,7 +169,8 @@ class Renderer:
                                       self.res).to(self.device)
         # a rank's shard (parallel.sharding.shard_renderer sets these)
         self.mesh = None
-        self.row_shards, self.row_index = 1, 0
+        self.row_shards = 1
+        self.cam_slice, self.row_slice = slice(0, len(self.mvps)), slice(0, h)
 
     @torch.no_grad()
     def check_overflow(self, v, topology: Topology, grow: bool = True) -> int:
@@ -238,15 +239,15 @@ class Renderer:
             cap, big = self.bin_cap, False
         slots_k = None if fslots is None else int(fslots.shape[-1])
         key = (self.res, self.shading, self.boost, cap, prebinned, slots_k,
-               big, self.row_shards, self.row_index)
+               big, self.row_shards)
         pipe = topology._pipe_cache.get(key)
         if pipe is None:
             kind = RenderPipelineBig if big else RenderPipeline
             kw = {} if big else {"prebinned": prebinned}
+            row_mesh = self.mesh if self.row_shards > 1 else None
             pipe = kind(topology.faces, topology.opp, self.res,
                         shading=self.shading, boost=self.boost, cap=cap,
-                        slots_k=slots_k, row_shards=self.row_shards,
-                        row_index=self.row_index, mesh=self.mesh, **kw)
+                        slots_k=slots_k, mesh=row_mesh, **kw)
             topology._pipe_cache[key] = pipe
         extra = ()
         if prebinned:

@@ -61,6 +61,8 @@ cotangents from a numpy seed.
 * The iterative solvers: CG, a V-cycle, AMG-PCG, the dense-block matvec
   and the block-AMG solve at icosphere-4 and -5, and the cotangent
   Laplacian with its gradient, on the card against the CPU.
+* ``to_differential`` on the card: the host's sum, the same bits every
+  call.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
@@ -1059,26 +1061,35 @@ def test_gpu_two_rank_render():
         assert np.abs(g["gv"] - gv).max() <= 1e-4 * np.abs(gv).max()
 
 
+# the coordinates' case: Adam on the vertices, as the remeshing test's
+COORDINATES = {"smooth": False, "optimizer": "Adam", "reg": 0.16,
+               "loss": "l1", "alpha": 0.95, "step_size": 1e-2}
+
+
 def two_rank_driver(rank, world, solver):
     """5 steps of the driver on the card, 2 views of 256², sharded dp = 1 ×
-    sp = 2."""
+    sp = 2; ``solver`` "coordinates" optimizes the vertices themselves
+    (``smooth`` off, no solve)."""
     from largesteps_torch.driver import optimize_shape
     s = make_scene(source=("icosphere", 4), target=("gourd", 4), n_views=2,
                    res=256)
-    r = optimize_shape(s, {"steps": 5, "step_size": 0.03, "lambda": 19.0,
-                           "boost": 3, "solver": solver,
-                           "sharding": {"dp": 1, "sp": 2}}, device="cuda")
+    p = {"steps": 5, "step_size": 0.03, "lambda": 19.0, "boost": 3,
+         "solver": solver, "sharding": {"dp": 1, "sp": 2}}
+    if solver == "coordinates":
+        p.update(COORDINATES, solver="Cholesky")
+    r = optimize_shape(s, p, device="cuda")
     return r["v_final"], r["losses"], r["prof"].get("solve_iters")
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("solver", ["CG", "Cholesky"])
+@pytest.mark.parametrize("solver", ["CG", "Cholesky", "coordinates"])
 def test_gpu_two_rank_driver(solver):
     """Two gloo ranks sharing the card run the sharded driver: the same
     final vertices, losses and CG iterations, bit for bit, on both.  The
     replicated work adds with float atomics on the card, so a CG solve
-    starts from rank 0's right-hand side and another solver's solutions
-    are rank 0's."""
+    starts from rank 0's right-hand side, another solver's solutions are
+    rank 0's, and without a solve (``smooth`` off) the coordinates'
+    gradients are rank 0's."""
     from largesteps_torch.parallel.distributed import launch
     _card()
     (v0, l0, it0), (v1, l1, it1) = launch(two_rank_driver, 2, device="cuda",
@@ -1087,3 +1098,24 @@ def test_gpu_two_rank_driver(solver):
     np.testing.assert_array_equal(l0, l1)
     np.testing.assert_array_equal(it0, it1)
     assert np.isfinite(l0).all() and l0[-1, 0] < l0[0, 0]
+
+
+@pytest.mark.gpu
+def test_gpu_to_differential_is_the_hosts_sum():
+    """u = M v of CUDA tensors: the same bits in repeated calls and as the
+    product of the same tensors on the CPU, on the card (a device
+    ``index_add_`` adds with float atomics, whose order varies)."""
+    from largesteps_torch.core.geometry import compute_matrix
+    from largesteps_torch.core.parameterize import to_differential
+    from largesteps_torch.ops.shapes import icosphere
+    dev = _card()
+    v, f = icosphere(5)
+    v = v.astype(np.float32)
+    want = to_differential(compute_matrix(v, f, lambda_=19.0, device="cpu"),
+                           torch.as_tensor(v))
+    M = compute_matrix(v, f, lambda_=19.0, device=dev)
+    got = [to_differential(M, torch.as_tensor(v, device=dev))
+           for _ in range(3)]
+    for u in got:
+        assert u.device.type == "cuda"
+        torch.testing.assert_close(u.cpu(), want, rtol=0, atol=0)

@@ -295,6 +295,25 @@ def test_host_bin_checkpoint_resumes_across_packages(driver_scene, jax_runs):
                                jax_runs["host"]["losses"][2, 0], rtol=1e-4)
 
 
+@pytest.mark.parametrize("disps,due", [([1.0, 1.0, 5.0], False),
+                                        ([1.0, 5.0, 1.0], True)])
+def test_rebin_due_lags_one_step(disps, due):
+    """The auto rule reads the displacement of every queued step but the
+    last (margin 4 px: due past 2 px), whether or not that step has run,
+    so that the rebin steps do not depend on the host's timing; the last
+    step's waits in the queue for the next decision."""
+    from collections import deque
+    from types import SimpleNamespace
+    drv = importlib.import_module("largesteps_torch.driver.optimize_shape")
+    p = {**drv.default_params(), "rebin_every": 0, "rebin_auto": True,
+         "rebin_margin": 4.0}
+    st = SimpleNamespace(max_window_disp=0.0)
+    q = deque((torch.tensor(d), None) for d in disps)
+    assert drv._rebin_due(st, p, len(disps), q) == due
+    assert [float(d) for d, _ in q] == disps[-1:]
+    assert st.max_window_disp == max(disps[:-1])
+
+
 def test_rebin_grows_cap_on_overflow(driver_scene):
     """A device rebin whose occupancy passed the cap sends the next rebin
     to the host, which grows the cap and keeps the face-slot width."""

@@ -9,19 +9,19 @@ fails with their standard error.  Four ranks at most, one torch thread
 each; tiny meshes and the smallest tilings (64 × 128: two tile rows;
 128 × 128: four).
 
-* ``suite``: one launch of 4 ranks runs every check below that needs no
+* ``ranks``: one launch of 4 ranks runs every check below that needs no
   driver: the halo swaps at sp = 2 and 4 (against ``_shift_up`` and
   ``_shift_down_ch`` of the whole image), the row-sharded pipes (traced,
   prebinned, camera-sequential; shaded and silhouette) forward and
   backward at sp = 2 and 4, the renderer's layouts (row shards, the
   fallback, the dense renderer, cameras that do not divide), a sharded
   render against the unsharded one, the sharded matvec, CG and vertex
-  gather, and ``replicate_global``.
-* ``drivers``: one launch of 4 ranks runs the driver at (64, 128) (row
+  gather, and ``replicate_global``; then the driver at (64, 128) (row
   shards) writing a checkpoint, at (32, 32) (the dense renderer) with a
   remesh, on host bins with device rebins, and with cameras alone on 4
-  ranks under ``"Cholesky"`` (solutions broadcast from rank 0);
-  ``resumed``: 2 ranks resume the checkpoint at another world size.
+  ranks under ``"Cholesky"`` (solutions broadcast from rank 0).  The
+  one-rank references run in this process meanwhile.
+* ``resumed``: 2 ranks resume the checkpoint at another world size.
 
 Tolerances: halo rows, ids and the row-sharded images exact or 1e-5
 absolute (the same kernels on the same rows); gradients 1e-4 × max|g|
@@ -118,16 +118,14 @@ def run_pipe(case, kind, shading, mesh=None, cams=slice(None),
     of ``mesh.sp`` with a mesh): (images, d v_clip, d attrs) as numpy."""
     from largesteps_torch.render.pipeline import (RenderPipeline,
                                                   RenderPipelineBig)
-    kw = {} if mesh is None or mesh.sp == 1 else {
-        "row_shards": mesh.sp, "row_index": mesh.sp_index, "mesh": mesh}
     if kind == "big":
         pipe = RenderPipelineBig(case["faces"], case["opp"], case["res"],
                                  shading=shading, boost=3.0, cap=case["cap"],
-                                 **kw)
+                                 mesh=mesh)
     else:
         pipe = RenderPipeline(case["faces"], case["opp"], case["res"],
                               shading=shading, boost=3.0, cap=case["cap"],
-                              prebinned=kind != "traced", **kw)
+                              prebinned=kind != "traced", mesh=mesh)
     v = torch.tensor(case["v_clip"][cams], requires_grad=True)
     a = torch.tensor(case["attrs"], requires_grad=True)
     bg = None if case["bg"] is None else torch.tensor(case["bg"][cams, rows])
@@ -258,9 +256,10 @@ def tri_rank(rank, world):
             "gather": sharded_vertex_gather(table, inc, mesh).numpy()}
 
 
-def suite_rank(rank, world):
-    """Every check of the ``suite`` fixture; a check that raises gives its
-    traceback instead of its result."""
+def suite_rank(rank, world, runs=()):
+    """Every check of the ``ranks`` fixture, then the driver runs of
+    ``runs`` (as :func:`driver_rank`'s, each under its name); a check that
+    raises gives its traceback instead of its result."""
     import traceback
     checks = {f"halo_sp{sp}": (lambda sp=sp: _halo_check(sp))
               for sp in (2, 4)}
@@ -274,6 +273,9 @@ def suite_rank(rank, world):
         pdist.process_index(), pdist.process_count(), pdist.is_coordinator(),
         pdist.replicate_global({"t": torch.full((3,), float(rank)),
                                 "a": [np.full(2, rank), "kept"]}))
+    for run in runs:
+        checks[run[0]] = lambda run=run: driver_rank(rank, world,
+                                                     [run])[run[0]]
     out = {}
     for name, fn in checks.items():
         try:
@@ -281,6 +283,24 @@ def suite_rank(rank, world):
         except Exception:
             out[name] = traceback.format_exc()
     return out
+
+
+def parity_rank(rank, world, runs):
+    """The port's side of ``tests/test_torch_sharding_jax.py`` in one
+    launch: the driver runs of ``runs`` and the sharded matvec, CG and
+    vertex gather."""
+    return {"drivers": driver_rank(rank, world, runs),
+            "tri": tri_rank(rank, world)}
+
+
+def launch_meanwhile(fn, world, args, work):
+    """(``launch(fn, world, args=args)``'s results, ``work()``): the ranks
+    run while ``work`` runs in this process."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(launch, fn, world, args=args, timeout=TIMEOUT)
+        here = work()
+        return ranks.result(), here
 
 
 def fail_rank(rank, world, how):
@@ -297,11 +317,6 @@ def fail_rank(rank, world, how):
 # ---------------------------------------------------------------------------
 # fixtures: one launch each
 # ---------------------------------------------------------------------------
-
-@pytest.fixture(scope="module")
-def suite():
-    return launch(suite_rank, 4, timeout=TIMEOUT)
-
 
 def _result(ranks, name):
     got = [r[name] for r in ranks]
@@ -339,18 +354,29 @@ def ckpt(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def drivers(ckpt):
+def ranks(ckpt):
+    """The checks and the driver runs of 4 ranks, and the drivers' one-rank
+    references."""
     runs = []
     for name, (res, sh, extra) in DRIVER_RUNS.items():
         p = {**DRIVER, "sharding": sh, **extra}
         if name == "rows":
             p.update(checkpoint_every=2, checkpoint_path=ckpt)
         runs.append((name, make(res), p, False))
-    sharded = launch(driver_rank, 4, args=(runs,), timeout=TIMEOUT)
-    single = {name: summary(optimize_shape(
-        make(res), {**DRIVER, **extra}, device="cpu"))
-        for name, (res, _, extra) in DRIVER_RUNS.items()}
-    return sharded, single
+    return launch_meanwhile(suite_rank, 4, (runs,), lambda: {
+        name: summary(optimize_shape(make(res), {**DRIVER, **extra},
+                                     device="cpu"))
+        for name, (res, _, extra) in DRIVER_RUNS.items()})
+
+
+@pytest.fixture(scope="module")
+def suite(ranks):
+    return ranks[0]
+
+
+@pytest.fixture(scope="module")
+def drivers(ranks):
+    return ranks
 
 
 @pytest.fixture(scope="module")
@@ -358,10 +384,10 @@ def resumed(drivers, ckpt):
     """The 4-rank (64, 128) run's checkpoint after 2 steps, resumed for 2
     more on 2 ranks (sp = 2) and on one."""
     p = {**DRIVER, "steps": 4, "resume": ckpt}
-    two = launch(driver_rank, 2, args=(
+    two, one = launch_meanwhile(driver_rank, 2, (
         [("resume", make((64, 128)), {**p, "sharding": {"dp": 1, "sp": 2}},
-          False)],), timeout=TIMEOUT)
-    one = summary(optimize_shape(make((64, 128)), p, device="cpu"))
+          False)],), lambda: summary(optimize_shape(make((64, 128)), p,
+                                                     device="cpu")))
     return [t["resume"] for t in two], one
 
 
@@ -487,7 +513,7 @@ def test_sharded_driver(drivers, name):
     images, equal to one rank's run; a remesh gives every rank the same
     topology; on host bins every rank rebins on the same steps."""
     sharded, single = drivers
-    got = [r[name] for r in sharded]
+    got = _result(sharded, name)
     want = single[name]
     for g in got:
         np.testing.assert_array_equal(g["v_final"], got[0]["v_final"])

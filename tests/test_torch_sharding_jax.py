@@ -4,7 +4,8 @@ The JAX side runs on ``tests/conftest.py``'s 8 virtual CPU devices, its
 Pallas kernels in interpret mode, as ``tests/test_sharding.py`` runs them;
 the port's side in 4 gloo ranks, with the rank bodies of
 ``tests/test_torch_sharding.py`` (which imports no JAX, so the spawned
-ranks do not either).
+ranks do not either).  One launch of the ranks runs the port's side of
+the driver and tri-shard checks while this process runs JAX's.
 
 * The driver, ``{"sharding": {"dp": 2, "sp": 2}}``, 2 steps of
   ``test_sharding.py:_driver_run``'s scene, at (64, 128) (tile rows on sp,
@@ -44,10 +45,9 @@ from largesteps_tpu.render.antialias import face_adjacency
 from largesteps_tpu.render.camera import project as j_project
 from largesteps_tpu.render.renderer import Renderer as JRenderer
 
-from largesteps_torch.parallel.distributed import launch
 from largesteps_torch.render import kernels as K
 
-from test_torch_sharding import TIMEOUT, driver_rank, tri_rank, vertex_table
+from test_torch_sharding import launch_meanwhile, parity_rank, vertex_table
 
 T = lambda a: torch.as_tensor(np.array(a))
 BIG = {"host_bin_faces": 1, "host_bin_cap": 1152, "rebin_every": 0,
@@ -79,14 +79,35 @@ def _params(extra):
             "solver": "CG", "sharding": SHARDING, **extra}
 
 
+def _jax_tri():
+    v, f = j_icosphere(3)
+    M = j_compute_matrix(v, f, lambda_=19.0)
+    u = j_to_diff(M, jnp.asarray(v))
+    mesh = j_make_mesh(4, sp=2)
+    table, inc = vertex_table(np.asarray(f), u.shape[0])
+    want = {"matvec": j_sharded_coo_matvec(M, u, mesh),
+            "cg": j_sharded_cg_solve(M, u, mesh, tol=1e-6),
+            "gather": j_sharded_vertex_gather(jnp.asarray(table.numpy()),
+                                              inc, mesh)}
+    return {k: np.asarray(x) for k, x in want.items()}
+
+
 @pytest.fixture(scope="module")
-def drivers():
+def parity():
+    """(the port's 4 ranks' results, JAX's driver runs, JAX's tri-shard
+    results)."""
     runs = [(name, _scene(res), _params(extra), name == "big")
             for name, (res, extra) in RUNS.items()]
-    port = launch(driver_rank, 4, args=(runs,), timeout=TIMEOUT)
-    jax_runs = {name: j_optimize_shape(_scene(res), _params(extra))
-                for name, (res, extra) in RUNS.items()}
-    return port, jax_runs
+    port, (jax_runs, jax_tri) = launch_meanwhile(
+        parity_rank, 4, (runs,), lambda: (
+            {name: j_optimize_shape(_scene(res), _params(extra))
+             for name, (res, extra) in RUNS.items()}, _jax_tri()))
+    return port, jax_runs, jax_tri
+
+
+@pytest.fixture(scope="module")
+def drivers(parity):
+    return [r["drivers"] for r in parity[0]], parity[1]
 
 
 @pytest.mark.parametrize("name", list(RUNS))
@@ -106,18 +127,8 @@ def test_sharded_driver_matches_jax(drivers, name):
 
 
 @pytest.fixture(scope="module")
-def tri():
-    v, f = j_icosphere(3)
-    M = j_compute_matrix(v, f, lambda_=19.0)
-    u = j_to_diff(M, jnp.asarray(v))
-    mesh = j_make_mesh(4, sp=2)
-    table, inc = vertex_table(np.asarray(f), u.shape[0])
-    want = {"matvec": j_sharded_coo_matvec(M, u, mesh),
-            "cg": j_sharded_cg_solve(M, u, mesh, tol=1e-6),
-            "gather": j_sharded_vertex_gather(jnp.asarray(table.numpy()),
-                                              inc, mesh)}
-    return launch(tri_rank, 4, timeout=TIMEOUT), \
-        {k: np.asarray(x) for k, x in want.items()}
+def tri(parity):
+    return [r["tri"] for r in parity[0]], parity[2]
 
 
 @pytest.mark.parametrize("op", ["matvec", "cg", "gather"])
