@@ -42,14 +42,27 @@ of ``torch.distributed`` sharing the card over gloo, spawned by
 and 4 against the unsharded one, and three driver legs, the main path
 under ``"CG"``, the viewpoints figure's ``views_16_ours`` and the teaser's
 ``ours`` at nefertiti, beside their unsharded runs; one NCCL rank; two
-NCCL ranks on the card, which NCCL must refuse) and the
-port's benchmark (``bench``: the functions of
-``largesteps_torch.benchmarks.bench``, the nefertiti line at 10 steps, the
-sharded-CG lines), the tile kernels' launches counted around each.
-Prints one JSON line per phase, then the kernel table, the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero, without the
-``ok`` line, if there is no CUDA device or any phase fails.  Imports
-neither jax nor largesteps_tpu.
+NCCL ranks on the card, which NCCL must refuse), determinism
+(``determinism``: every sum of a step is added in a fixed order, so
+raster_bwd and aa_bwd launched twice on the same inputs, at the main
+path's shapes and at nefertiti's cap, give the same bits, and so do two
+runs each of the main path, the main path under ``"CG"``, the dense path
+and the teaser's ``ours`` leg, in every loss and final vertex), the figure
+experiments this slice ported (``figures``: the ``--quick`` legs of
+viewpoints, influence and reg_fail) and the port's benchmark (``bench``:
+the functions of ``largesteps_torch.benchmarks.bench``, the nefertiti
+line at 10 steps, the sharded-CG lines), the tile kernels' launches
+counted around each.  Prints one JSON line per phase, then the kernel
+table, the card's name and power limit, and as the last line ``{"ok":
+true, "device": {...}}``.  Exits non-zero, without the ``ok`` line, if
+there is no CUDA device or any phase fails.  Imports neither jax nor
+largesteps_tpu.
+
+    python3 chip_smoke.py --only kernels,determinism
+
+runs the ``card`` phase and the named phases alone, each with the earlier
+phases whose runs it reuses (``NEEDS``), and prints no kernel table and no
+``ok`` line.
 """
 import json
 import os
@@ -90,6 +103,17 @@ F32 = 4
 # did it (their earlier times: PERF.md)
 REDESIGNED = {"aa_fwd": "PR 2", "aa_bwd": "PR 2", "raster_fwd": "PR 3",
               "raster_bwd": "PR 3"}
+# kernels whose per-slot sums are added in a fixed order (sorted keys, no
+# float atomics): the same bits on every launch (phase determinism)
+FIXED_ORDER = ("raster_bwd", "aa_bwd")
+# runs kept for the determinism phase: name -> (losses, final vertices),
+# the first of each pair that must be bit-equal; and the two launches of
+# the fixed-order kernels on the same inputs, by shape
+REPEATS = {}
+TWICE = {}
+# the earlier phases whose runs a phase reuses, which --only runs with it
+NEEDS = {"determinism": ("kernels", "main_path", "dense_path",
+                         "large_f_kernels", "sharding")}
 # the micro-benchmarks' kernels: float ops a valid entry (onehot_scatter:
 # one add a channel) and a covered pixel (probe_tile: 18 products, 18 adds)
 FLOPS_PROBE_PIXEL = 36
@@ -182,7 +206,8 @@ def holds(name, got, want):
         tol = "1e-5 abs"
         passed = errs[0] <= 1e-5
     elif name == "raster_bwd":
-        # per-slot sums by atomics: the summation order differs
+        # per-slot sums: the kernel adds in slot-sorted pixel order, the
+        # plain version in index_add_'s
         tol = "1e-4 x max|plain|"
         passed = errs[0] <= 1e-4 * scales[0]
     else:
@@ -263,12 +288,12 @@ def ran(info, key):
 
 
 def instance(name, cap, channels):
-    """The template argument, as mangled, of the kernel ``name`` that runs
-    at ``cap`` with ``channels`` colour channels: the antialias kernels'
-    channels; raster_bwd's whether its per-slot table fits shared memory
-    (``RB_TABLE_MAX`` in ``csrc/common.cuh``)."""
+    """What the mangled name of the kernel ``name`` that runs at ``cap``
+    with ``channels`` colour channels holds: the antialias kernels'
+    channels (aa_bwd's sums kernel, aa_bwd_sums, has its own line);
+    raster_bwd's one kernel."""
     if name == "raster_bwd":
-        return "ILb1E" if cap * 18 * F32 <= 200 * 1024 else "ILb0E"
+        return "raster_bwd_kernel"
     return f"ILi{channels}E"
 
 
@@ -498,16 +523,38 @@ def check_kernels(m, card, phase, reps, plain_reps):
     return ok, table
 
 
+def launched_twice(m):
+    """raster_bwd and aa_bwd launched twice each on the inputs ``m``:
+    whether the two launches' outputs are the same bits, and the cap."""
+    from largesteps_torch.render import kernels as K
+    zeros = torch.zeros_like(m["fid"])
+    runs = {
+        "raster_bwd": lambda: (K.raster_bwd(
+            m["rbb"], m["counts"], m["slot"], m["d_col"], zeros, zeros,
+            m["res"]),),
+        "aa_bwd": lambda: K.aa_bwd(m["rbb"], m["counts"], m["fid"], m["z"],
+                                   m["comp"], m["d_out"], m["res"])}
+    out = {"cap": m["cap"]}
+    for name, fn in runs.items():
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        out[name] = all(torch.equal(x, y) for x, y in zip(a, b))
+    return out
+
+
 def phase_kernels(card, ptxas):
     """Each kernel against its plain version on one forward+backward's real
     inputs at the main path's shapes."""
     m = main_path_inputs()
     ok, table = check_kernels(m, card, "kernel", 50, 3)
+    TWICE["main_path"] = launched_twice(m)
     for name, row in table.items():
         if name in REDESIGNED:
             row.update({"redesigned": REDESIGNED[name],
+                        "fixed_order_sums": name in FIXED_ORDER,
                         "ptxas": ran(ptxas[name], instance(
                             name, m["cap"], m["comp"].shape[-1]))})
+    table["aa_bwd"]["ptxas_sums"] = ran(ptxas["aa_bwd"], "aa_bwd_sums")
     return ok, table
 
 
@@ -517,6 +564,7 @@ def phase_large_f_kernels(card):
     timed on the one call compared)."""
     m = large_f_inputs()
     ok, table = check_kernels(m, card, "large_f_kernel", 10, 0)
+    TWICE["large_f"] = launched_twice(m)
     for row in table.values():
         row["cap"] = m["cap"]
     del m
@@ -572,6 +620,7 @@ def phase_main_path(card):
         K.LAUNCHES[k] = 0
     res = optimize_shape(scene, params, device="cuda")
     launches = dict(K.LAUNCHES)
+    REPEATS["main_path"] = (res["losses"], res["v_final"])
     losses = res["losses"][:, 0]
     first = res["prof"]["first_step_s"]
     steady = (STEPS - 1) / (res["wall_time"] - first)
@@ -1108,6 +1157,7 @@ def phase_dense_path(card):
     torch.cuda.reset_peak_memory_stats()
     res = optimize_shape(scene, params, device="cuda")
     launches = dict(K.LAUNCHES)
+    REPEATS["dense_path"] = (res["losses"], res["v_final"])
     losses = res["losses"][:, 0]
     prof = res["prof"]
     first = prof["first_step_s"]
@@ -1223,10 +1273,10 @@ def phase_remesh(card):
     mesh through the renderer's pick of the prebinned pipes, (d) 20 main-path
     steps with the host Cholesky solver against the same with the dense
     inverse, twice: the first loss, where only the solve differs, within
-    1e-4 relative, every loss within 5e-2 (the second dense run shows the
-    spread of two runs of one solver: the step's float atomics add in no
-    fixed order).  The tile kernels' launches are counted over the phase,
-    and per epoch of each leg."""
+    1e-4 relative, every loss within 5e-2 (the second dense run repeats
+    the first to the bit: the step's sums are added in a fixed order).  The
+    tile kernels' launches are counted over the phase, and per epoch of
+    each leg."""
     from largesteps_torch.driver import optimize_shape
     from largesteps_torch.figures import common, multiscale, remeshing
     from largesteps_torch.figures import teaser
@@ -1332,9 +1382,8 @@ def phase_remesh(card):
     torch.cuda.empty_cache()
 
     # (d) the host Cholesky solver against the dense inverse, and the dense
-    # inverse against itself: the step's float atomics make two runs of one
-    # solver part by up to 5e-3 within 20 steps on an H100, so 1e-4 holds
-    # where only the solve differs, the first step's loss
+    # inverse against itself (the same bits): 1e-4 holds where only the
+    # solve differs, the first step's loss
     scene = main_path_scene(seed=SEED)
     runs = {}
     for tag, solver in (("CholeskyHost", "CholeskyHost"),
@@ -1553,27 +1602,29 @@ def phase_solvers(card):
 # ---------------------------------------------------------------------------
 
 SHARD_LEG_STEPS = {"main_path": 20, "viewpoints": 20, "teaser": 10}
-# figures/viewpoints/generate_data.py:7-21, the views_16_ours leg
-VIEWPOINTS_PARAMS = {"boost": 3, "step_size": 1e-2, "loss": "l1",
-                     "alpha": 0.95, "smooth": True,
-                     "optimizer": "AdamUniform"}
+
+
+def _views_16_ours():
+    """The viewpoints figure's ``views_16_ours`` leg: (scene, params)."""
+    from largesteps_torch.figures.viewpoints import legs
+    return next((scene, params) for name, scene, params in legs()
+                if name == "views_16_ours")
 
 
 def _shard_scene(leg):
-    from largesteps_torch.figures.common import SCENES
     from largesteps_torch.io.synth import make_scene
     from largesteps_torch.profiling import large_f_scene, main_path_scene
     if leg == "main_path":
         return main_path_scene(seed=SEED)
     if leg == "teaser":
         return large_f_scene(seed=SEED)
-    return make_scene(**dict(SCENES["bunny"], n_views=16))
+    return make_scene(**_views_16_ours()[0])
 
 
 def _shard_params(leg):
     from largesteps_torch.profiling import LARGE_F_PARAMS, MAIN_PATH_PARAMS
     p = {"main_path": {**MAIN_PATH_PARAMS, "solver": "CG"},
-         "teaser": LARGE_F_PARAMS, "viewpoints": VIEWPOINTS_PARAMS}[leg]
+         "teaser": LARGE_F_PARAMS, "viewpoints": _views_16_ours()[1]}[leg]
     return {**p, "steps": SHARD_LEG_STEPS[leg]}
 
 
@@ -1672,6 +1723,7 @@ def _shard_leg(leg, sharding, transport=False):
             setattr(mod, name, fn)
     prof = res["prof"]
     return {"losses": res["losses"][:, 0], "v_final": res["v_final"],
+            "losses_all": res["losses"],
             "it_per_s": _steady(res), "wall_s": res["wall_time"],
             "first_step_s": prof["first_step_s"], "setup_s": prof["setup_s"],
             "peak_bytes": torch.cuda.max_memory_allocated(),
@@ -1818,6 +1870,11 @@ def phase_sharding(card):
     for leg in SHARD_LEG_STEPS:
         single[leg] = _shard_leg(leg, None)
         torch.cuda.empty_cache()
+    # the unsharded main path under "CG" and teaser leg, for determinism
+    REPEATS["main_path_cg"] = (single["main_path"]["losses_all"],
+                               single["main_path"]["v_final"])
+    REPEATS["teaser"] = (single["teaser"]["losses_all"],
+                         single["teaser"]["v_final"])
     sp2 = {"dp": 1, "sp": 2}
     runs = {}
     t0 = time.perf_counter()
@@ -1879,6 +1936,10 @@ def phase_sharding(card):
               "steps": len(lg), "loss_first": float(lg[0]),
               "loss_last": float(lg[-1]), "max_rel_loss": max(rel),
               "first_rel_loss": rel[0], "same_on_every_rank": same,
+              # reported: at sp = 2 with the cameras unsplit the run takes
+              # the unsharded run's steps to the bit
+              "v_final_as_unsharded": bool(np.array_equal(
+                  got[0]["v_final"], want["v_final"])),
               "it_per_s": [g["it_per_s"] for g in got],
               "unsharded_it_per_s": want["it_per_s"],
               "first_step_s": [g["first_step_s"] for g in got],
@@ -1901,6 +1962,105 @@ def phase_sharding(card):
     emit({"phase": "sharding_summary", "passed": passed, "checks": checks,
           "launch_s": launch_s, "card": card})
     return passed, launches, halo_err
+
+
+def _repeat(name):
+    """(losses, final vertices) of one more run of the determinism pair
+    ``name``, made as its first run was."""
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.io.synth import make_scene
+    from largesteps_torch.profiling import MAIN_PATH_PARAMS, main_path_scene
+    if name in ("main_path_cg", "teaser"):
+        r = _shard_leg("main_path" if name == "main_path_cg" else name, None)
+        return r["losses_all"], r["v_final"]
+    scene = main_path_scene(seed=SEED) if name == "main_path" else \
+        make_scene(source=("icosphere", 4), target=("gourd", 4), n_views=13,
+                   res=250, seed=SEED)
+    res = optimize_shape(scene, {**MAIN_PATH_PARAMS, "steps": STEPS},
+                         device="cuda")
+    return res["losses"], res["v_final"]
+
+
+def phase_determinism(card):
+    """Every sum of a step on the card is added in a fixed order, so a run
+    repeats itself to the bit: raster_bwd and aa_bwd launched twice on the
+    same inputs, at the main path's shapes (phase ``kernels``) and at
+    nefertiti's cap (``large_f_kernels``), must give the same bits; so must
+    two runs each of the main path (20 steps), the main path under
+    ``"CG"`` (20), the dense path (20) and the teaser's ``ours`` leg at
+    nefertiti (10 steps, rebins included), in every loss and in the final
+    vertices.  The first run of each pair is the one an earlier phase made
+    (``main_path``, ``dense_path``, ``sharding``'s unsharded legs); a pair
+    whose first run is missing (its phase failed) fails."""
+    pairs = {}
+    for name in ("main_path", "main_path_cg", "dense_path", "teaser"):
+        if name not in REPEATS:
+            pairs[name] = {"bit_equal": False, "first_run": "missing"}
+            continue
+        t0 = time.perf_counter()
+        first = REPEATS[name]
+        again = _repeat(name)
+        torch.cuda.empty_cache()
+        (la, va), (lb, vb) = first, again
+        rel = np.abs(la - lb) / np.maximum(np.abs(la), 1e-30)
+        pairs[name] = {"steps": int(la.shape[0]),
+                       "bit_equal": bool(np.array_equal(la, lb)
+                                         and np.array_equal(va, vb)),
+                       "max_rel_loss_diff": float(rel.max()),
+                       "max_abs_vert_diff": float(np.abs(va - vb).max()),
+                       "s": time.perf_counter() - t0}
+    kernels = {shape: TWICE.get(shape) for shape in ("main_path", "large_f")}
+    passed = (all(p["bit_equal"] for p in pairs.values())
+              and all(k is not None and k["raster_bwd"] and k["aa_bwd"]
+                      for k in kernels.values()))
+    emit({"phase": "determinism", "passed": passed, "runs": pairs,
+          "kernels_twice": kernels, "card": card})
+    return passed
+
+
+FIGURES_QUICK = ("viewpoints", "influence", "reg_fail")
+
+
+def phase_figures(card):
+    """The ``--quick`` leg of each figure experiment the port added
+    (``python -m largesteps_torch.figures.<name> --quick``: viewpoints'
+    4-camera pair, influence at α = 0.95, reg_fail's ``ours`` and
+    ``reg_400``) on the card: every leg's three files written (the JAX
+    experiment's names), its image loss finite and falling, and the tile
+    kernels launched in every experiment."""
+    import csv
+    import importlib
+    from largesteps_torch.figures import common
+    launches = _zero_launches()
+    exps, passed = {}, True
+    for exp in FIGURES_QUICK:
+        mod = importlib.import_module(f"largesteps_torch.figures.{exp}")
+        before = dict(launches)
+        t0 = time.perf_counter()
+        hausdorff = mod.main(["--quick"])
+        legs = {}
+        for name, d in hausdorff.items():
+            base = os.path.join(common.OUTPUT_DIR, exp, name)
+            files = all(os.path.exists(base + s) for s in (
+                "_final.ply", "_loss.csv", "_metrics.csv"))
+            with open(base + "_loss.csv") as fh:
+                im = np.array([float(r[1]) for r in list(csv.reader(fh))[1:]])
+            legs[name] = {"hausdorff": d, "files": files, "steps": len(im),
+                          "loss_first": float(im[0]),
+                          "loss_last": float(im[-1]),
+                          "falls": bool(np.isfinite(im).all()
+                                        and im[-1] < im[0])}
+        ran_ = {k: launches[k] - before[k] for k in launches}
+        ok = (bool(legs) and all(l["files"] and l["falls"]
+                                 for l in legs.values())
+              and all(n >= 1 for n in ran_.values()))
+        exps[exp] = {"passed": ok, "legs": legs, "launches": ran_,
+                     "s": time.perf_counter() - t0}
+        passed = passed and ok
+    launches = dict(launches)
+    emit({"phase": "figures", "passed": passed, "experiments": exps,
+          "output_dir": common.OUTPUT_DIR, "card": card})
+    return passed, launches
 
 
 def phase_bench(card):
@@ -1942,6 +2102,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    only = sys.argv[2].split(",") if sys.argv[1:2] == ["--only"] else None
+    if only:
+        only = [p for name in only for p in (*NEEDS.get(name, ()), name)]
     name, line, ptxas = phase_card()
     card = {"name": name, "nvidia_smi": line}
     results = {}
@@ -1958,7 +2121,11 @@ def main():
                       ("remesh", phase_remesh),
                       ("solvers", phase_solvers),
                       ("sharding", phase_sharding),
+                      ("determinism", phase_determinism),
+                      ("figures", phase_figures),
                       ("bench", phase_bench)):
+        if only and phase not in only:
+            continue
         t0 = time.perf_counter()
         try:
             results[phase] = fn(card)
@@ -1967,6 +2134,12 @@ def main():
             emit({"phase": phase, "passed": False, "error": "exception"})
             results[phase] = None
         emit({"phase": f"{phase}_seconds", "s": time.perf_counter() - t0})
+    if only:
+        # a part of the run: each phase's own pass, no kernels line
+        bad = [p for p in only if not (results.get(p) is True or (
+            isinstance(results.get(p), tuple) and results[p][0]))]
+        print(f"chip_smoke: phases {only}, failed {bad}", file=sys.stderr)
+        return 1 if bad else 0
     k_ok, table = results["kernels"] or (False, {})
     m_ok, launches = results["main_path"] or (False, {})
     fk_ok, f_table = results["large_f_kernels"] or (False, {})
@@ -1976,6 +2149,7 @@ def main():
     r_ok, r_launches = results["remesh"] or (False, {})
     s_ok, s_launches = results["solvers"] or (False, {})
     sh_ok, sh_launches, sh_err = results["sharding"] or (False, {}, {})
+    fg_ok, fg_launches = results["figures"] or (False, {})
     b_ok, b_launches = results["bench"] or (False, {})
     # the kernels were held at the run's shapes: its cap is theirs
     fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
@@ -1992,6 +2166,8 @@ def main():
                               ("remesh", r_ok),
                               ("solvers", s_ok),
                               ("sharding", sh_ok),
+                              ("determinism", results["determinism"]),
+                              ("figures", fg_ok),
                               ("bench", b_ok)) if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
@@ -2010,6 +2186,7 @@ def main():
         row["sharding_launches"] = {leg: [r[k] for r in ranks]
                                     for leg, ranks in sh_launches.items()}
         row["sharding_max_abs_err"] = sh_err[k]
+        row["figures_launches"] = fg_launches[k]
         row["bench_launches"] = b_launches[k]
     # the micro-benchmarks' kernels: their own launches, no large-F run;
     # ptxas's line of the instantiation that ran at each shape

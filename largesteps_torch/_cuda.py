@@ -52,10 +52,13 @@ _SIGNATURES = {
     # (null without row shards): (..., C, TY, TX, cap, H, W, D, row0, sxs,
     # sys, stream)
     "ls_aa_fwd": ([_P] * 11 + [_I] * 8 + [_F, _F, _P], _I),
-    "ls_aa_bwd": ([_P] * 14 + [_I] * 8 + [_F, _F, _P], _I),
+    "ls_aa_bwd": ([_P] * 15 + [_I] * 8 + [_F, _F, _P], _I),
     # bytes of global scratch the antialias owner tables need, from
     # (tiles, cap); exported by aa_fwd's library, used by both kernels
     "ls_aa_scratch": ([_I, _I], ctypes.c_longlong),
+    # bytes of aa_bwd's pair lists (each strip's blending pairs, summed in
+    # a fixed order by a second kernel), from tiles
+    "ls_aa_pairs_bytes": ([_I], ctypes.c_longlong),
     # the rasterizer micro-benchmarks' kernels (largesteps_torch.benchmarks)
     "ls_onehot_scatter": ([_P, _P, _P, ctypes.c_longlong, _I, _I, _P], _I),
     "ls_probe_tile": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),

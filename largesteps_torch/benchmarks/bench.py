@@ -52,7 +52,8 @@ from ..core.optimize import AdamUniform
 from ..core.parameterize import get_solver, to_differential
 from ..core.solvers import solve
 from ..io.synth import make_scene
-from ..ops.normals import compute_face_normals, compute_vertex_normals
+from ..ops.normals import (compute_face_normals, compute_vertex_normals,
+                           corner_segments)
 from ..ops.shapes import icosphere
 from ..render.camera import project
 from ..render.pipeline import ABLATE, RenderPipeline
@@ -287,6 +288,7 @@ def bench_step(device=None):
             vt, ft, compute_face_normals(vt, ft)), Topology(ft))
     vs, fs, topo, _ = _source(scene, renderer)
     f_dev = torch.as_tensor(fs.astype(np.int64), device=dev)
+    corners = corner_segments(f_dev, len(vs), dev)     # as the driver's
     M = compute_matrix(vs, fs, lambda_=19.0, device=dev)
     solver = get_solver(M, "Cholesky")
     theta = {"u": to_differential(M, vs).detach().requires_grad_(True),
@@ -297,7 +299,9 @@ def bench_step(device=None):
     def step():
         opt.zero_grad(set_to_none=True)
         v = solve(solver, theta["u"])
-        n = compute_vertex_normals(v, f_dev, compute_face_normals(v, f_dev))
+        n = compute_vertex_normals(v, f_dev,
+                                   compute_face_normals(v, f_dev, corners),
+                                   corners)
         imgs = renderer.render(theta["tr"] + v, n, topo)
         loss = (imgs - ref).square().mean()
         loss.backward()

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.segment import Segments
 from .sparse import CooStructure, SparseCOO
 
 __all__ = ["BlockedOperator", "permuted_coo", "rcm_permutation"]
@@ -70,7 +71,8 @@ class BlockedOperator:
                                M.vals.detach().to(torch.float32),
                                accumulate=True)
         # uniq is sorted by (row group, column group): row groups ascend
-        self.row_group = idx(uniq // G)
+        # the blocks of each row group, summed in block order
+        self.row_group = Segments(uniq // G, self.groups, dev)
         self.col_group = idx(uniq % G)
         self.hbm_bytes = self.n_blocks * B * B * 4
 
@@ -88,8 +90,7 @@ class BlockedOperator:
         xb = xp.reshape(self.groups, self.block, k)[self.col_group]
         with full_fp32():
             yb = torch.bmm(self.blocks, xb)                  # (NB, B, k)
-        yg = torch.zeros((self.groups, self.block, k), dtype=yb.dtype,
-                         device=yb.device).index_add_(0, self.row_group, yb)
+        yg = self.row_group.sum(yb)
         y = yg.reshape(self.n_pad, k)[:n_in]
         return y[:, 0] if squeeze else y
 

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ops.segment import Segments
 from .sparse import CooStructure, SparseCOO
 
 __all__ = ["adjacency_edges", "laplacian_uniform", "laplacian_cot",
@@ -83,9 +84,7 @@ def laplacian_cot(verts: torch.Tensor, faces) -> SparseCOO:
     ii = faces[:, [1, 2, 0]].reshape(-1)
     jj = faces[:, [2, 0, 1]].reshape(-1)
     ww = torch.cat([w, w])
-    colsum = torch.zeros(n_verts, dtype=w.dtype, device=w.device).index_add(
-        0, torch.as_tensor(np.concatenate([jj, ii]).astype(np.int64),
-                           device=w.device), ww)
+    colsum = Segments(np.concatenate([jj, ii]), n_verts, w.device).sum(ww)
     return SparseCOO(st, st.coalesce_values(torch.cat([-ww, colsum])))
 
 

@@ -11,7 +11,8 @@ device as a V(1,1)-cycle inside CG:
   ``coarse_limit`` rows; that level's dense inverse by
   ``torch.linalg.cholesky`` and ``torch.cholesky_inverse`` on the device;
 * device apply: weighted-Jacobi smoothing (ω = 0.8), restriction as a
-  segment sum over the aggregates (``index_add``), prolongation as a
+  segment sum over the aggregates in a fixed order (``ops/segment.py``;
+  ``index_add`` on the card adds in no fixed order), prolongation as a
   gather, the coarsest level one product with the dense inverse in full
   float32.
 
@@ -33,6 +34,7 @@ import torch
 
 from .blocksp import BlockedOperator
 from .solvers import CHECK_EVERY, col_norm, full_fp32
+from ..ops.segment import Segments
 from .sparse import CooMatvec, CooStructure, SparseCOO
 
 __all__ = ["AmgHierarchy", "build_hierarchy", "vcycle", "amg_pcg_solve",
@@ -113,6 +115,7 @@ class _Level:
     inv_diag: torch.Tensor            # 1 / diag(A)
     agg: torch.Tensor | None          # fine row -> coarse aggregate id
     n_coarse: int | None
+    agg_segments: Segments | None = None   # the fine rows of each aggregate
 
 
 @dataclasses.dataclass
@@ -152,7 +155,7 @@ def build_hierarchy(M: SparseCOO, coarse_limit: int = 4096,
         levels.append(_Level(
             op=make_op(A), inv_diag=1.0 / A.diagonal().detach(),
             agg=torch.as_tensor(agg.astype(np.int64), device=dev),
-            n_coarse=n_c))
+            n_coarse=n_c, agg_segments=Segments(agg, n_c, dev)))
         # Galerkin coarse operator: relabel and coalesce (numpy, float64)
         lin = agg[rows].astype(np.int64) * n_c + agg[cols]
         uniq, inv = np.unique(lin, return_inverse=True)
@@ -204,10 +207,8 @@ def vcycle(h: AmgHierarchy, b: torch.Tensor, lvl: int = 0) -> torch.Tensor:
     # pre-smooth from zero: x = ω D⁻¹ b
     x = om * d * b
     r = b - level.op.matvec(x)
-    agg = level.agg
-    r_c = torch.zeros((level.n_coarse, *r.shape[1:]), dtype=r.dtype,
-                      device=r.device).index_add_(0, agg, r)
-    x = x + vcycle(h, r_c, lvl + 1)[agg]
+    r_c = level.agg_segments.sum(r)
+    x = x + vcycle(h, r_c, lvl + 1)[level.agg]
     # post-smooth
     return x + om * d * (b - level.op.matvec(x))
 

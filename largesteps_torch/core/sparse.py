@@ -1,12 +1,14 @@
-"""Sparse matrices: static-structure COO with an ``index_add_`` matvec.
+"""Sparse matrices: static-structure COO with a fixed-order matvec.
 
 Port of ``largesteps_tpu/core/sparse.py``.  A matrix is a host-built static
 structure (:class:`CooStructure`, numpy index arrays made once per topology
 epoch, duplicates coalesced through a precomputed ``slot`` map) plus a value
-tensor on the device.  The matvec is ``index_add_`` of ``vals * x[cols]``
-into ``rows``.  :class:`CooMatvec` is the same product without the
-structure object, for solvers that keep a matrix past its epoch's lifetime
-in the solver cache.
+tensor on the device.  The matvec sums ``vals * x[cols]`` into ``rows`` as
+segments in a fixed order (``ops/segment.py``; the entries are sorted by
+row), and its gradient in x into ``cols`` the same way: on the card
+``index_add_`` adds in no fixed order, and runs would part.
+:class:`CooMatvec` is the same product without the structure object, for
+solvers that keep a matrix past its epoch's lifetime in the solver cache.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..ops.segment import Segments
 
 __all__ = ["CooStructure", "SparseCOO", "CooMatvec", "from_coo",
            "coo_matvec"]
@@ -64,12 +68,21 @@ class CooStructure:
                 getattr(self, name).astype(np.int64), device=device)
         return self._dev[key]
 
+    def segments(self, name: str, device) -> Segments:
+        """The entries as segments of their ``rows`` or ``cols``, or the
+        input entries as segments of their coalesced ``slot``: built once
+        a device and kept."""
+        key = ("segments", name, str(device))
+        if key not in self._dev:
+            n = {"rows": self.shape[0], "cols": self.shape[1],
+                 "slot": self.nnz}[name]
+            self._dev[key] = Segments(getattr(self, name), n, device)
+        return self._dev[key]
+
     def coalesce_values(self, raw_vals: torch.Tensor) -> torch.Tensor:
-        """Sum duplicate-coordinate input values into coalesced slots."""
-        out = torch.zeros(self.nnz, dtype=raw_vals.dtype,
-                          device=raw_vals.device)
-        return out.index_add_(0, self.index("slot", raw_vals.device),
-                              raw_vals)
+        """Sum duplicate-coordinate input values into coalesced slots, in
+        input order."""
+        return self.segments("slot", raw_vals.device).sum(raw_vals)
 
 
 @dataclasses.dataclass
@@ -138,20 +151,38 @@ def from_coo(rows, cols, raw_vals: torch.Tensor, shape) -> SparseCOO:
     return SparseCOO(st, st.coalesce_values(raw_vals))
 
 
-def _matvec(rows, cols, vals, n_rows, x):
+class _Matvec(torch.autograd.Function):
+    """y = A x over the entries' row and column segments; the gradient in
+    x is Aᵀ g over the column segments, in vals g[rows] · x[cols]."""
+
+    @staticmethod
+    def forward(ctx, vals, x, rows, cols):
+        ctx.save_for_backward(vals, x)
+        ctx.rows, ctx.cols = rows, cols
+        return rows.sum(vals[:, None] * x[cols.ids])
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, x = ctx.saved_tensors
+        gr = g[ctx.rows.ids]
+        d_vals = (gr * x[ctx.cols.ids]).sum(dim=1) \
+            if ctx.needs_input_grad[0] else None
+        d_x = ctx.cols.sum(vals[:, None] * gr) \
+            if ctx.needs_input_grad[1] else None
+        return d_vals, d_x, None, None
+
+
+def _matvec(rows, cols, vals, x):
     squeeze = x.ndim == 1
-    if squeeze:
-        x = x[:, None]
-    y = torch.zeros((n_rows, x.shape[1]), dtype=x.dtype, device=x.device)
-    y = y.index_add(0, rows, vals[:, None] * x[cols])
+    y = _Matvec.apply(vals, x[:, None] if squeeze else x, rows, cols)
     return y[:, 0] if squeeze else y
 
 
 def coo_matvec(A: SparseCOO, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for dense x of shape (n,) or (n, k)."""
     st = A.structure
-    return _matvec(st.index("rows", x.device), st.index("cols", x.device),
-                   A.vals, A.shape[0], x)
+    return _matvec(st.segments("rows", x.device),
+                   st.segments("cols", x.device), A.vals, x)
 
 
 class CooMatvec:
@@ -163,10 +194,12 @@ class CooMatvec:
 
     def __init__(self, A: SparseCOO):
         dev = A.device
-        self.rows = A.structure.index("rows", dev)
-        self.cols = A.structure.index("cols", dev)
+        self.row_segments = A.structure.segments("rows", dev)
+        self.col_segments = A.structure.segments("cols", dev)
+        self.rows = self.row_segments.ids
+        self.cols = self.col_segments.ids
         self.vals = A.vals.detach()
         self.shape = A.shape
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return _matvec(self.rows, self.cols, self.vals, self.shape[0], x)
+        return _matvec(self.row_segments, self.col_segments, self.vals, x)

@@ -175,13 +175,105 @@ __device__ __forceinline__ bool rf_misses(const float (&r)[9], float x0,
   return out0 || out1 || out2;
 }
 
-// raster_bwd: RB_THREADS threads a tile, a warp a row; lane l takes the
-// row's pixels l, l + 32, l + 64, l + 96, one step each.
+// raster_bwd: RB_THREADS threads a tile, RB_STEPS pixels (or sorted
+// terms) a thread.
 constexpr int RB_THREADS = 32 * TILE_H;
 constexpr int RB_STEPS = TILE_W / 32;
 constexpr int RB_SUMS = 18;        // per-slot sums, output columns 0-17
-// the largest per-slot table kept in shared memory (cap 2,844)
-constexpr int RB_TABLE_MAX = 200 * 1024;
+
+// ---------------------------------------------------------------------------
+// Fixed-order sums (raster_bwd.cu, aa_bwd.cu)
+// ---------------------------------------------------------------------------
+// Float adds that arrive in no fixed order (atomics) round differently from
+// launch to launch, and a step on the card would not repeat itself.  The
+// per-slot sums instead give each term a distinct 32-bit key, the slot in
+// its high bits and the term's place in the tile in its low ones, sort the
+// keys, and add each slot's terms in key order: the same bits every launch.
+constexpr int SORT_BITS = 4;                     // a digit a pass
+constexpr int SORT_RADIX = 1 << SORT_BITS;
+
+// The least number of bits that hold every value 0..n.
+__host__ __device__ __forceinline__ int bits_for(int n) {
+  int b = 1;
+  while (b < 31 && (1 << b) <= n) ++b;
+  return b;
+}
+
+// Exclusive prefix sum of a[0..n) in place, by the block's NT threads, each
+// taking a contiguous run of entries; returns after a barrier.
+template <int NT>
+__device__ __forceinline__ void block_scan(int* a, int n, int* warp_tot) {
+  const int per = (n + NT - 1) / NT;
+  const int lo = min(n, (int)threadIdx.x * per), hi = min(n, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += a[i];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = sum;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int run = incl - sum;
+  for (int w = 0; w < warp; ++w) run += warp_tot[w];
+  for (int i = lo; i < hi; ++i) {
+    const int v = a[i];
+    a[i] = run;
+    run += v;
+  }
+  __syncthreads();
+}
+
+// Sorts the n <= NT * ITEMS distinct keys keys[0..n) ascending, where only
+// bits [lo, hi) of a key may be out of order: a stable least-significant-
+// digit radix sort, SORT_BITS a pass.  A pass reads the keys at positions
+// j * NT + threadIdx.x (j < ITEMS) and ranks each in position order: its
+// rank among its warp's keys of its digit (a warp match) plus the keys of
+// its digit in the (digit, j, warp) groups before its own (a scan of the
+// groups' counts).  No step depends on timing, so the order is the same
+// every launch.  tmp holds NT * ITEMS keys, hist SORT_RADIX * ITEMS * NT /
+// 32 counts; returns the buffer holding the sorted keys, after a barrier.
+template <int NT, int ITEMS>
+__device__ __forceinline__ const unsigned* block_sort(unsigned* keys,
+                                                      unsigned* tmp,
+                                                      int* hist,
+                                                      int* warp_tot, int n,
+                                                      int lo, int hi) {
+  constexpr int WARPS = NT / 32;
+  constexpr int GROUPS = SORT_RADIX * ITEMS * WARPS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  for (int shift = lo; shift < hi; shift += SORT_BITS) {
+    for (int i = threadIdx.x; i < GROUPS; i += NT) hist[i] = 0;
+    __syncthreads();
+    unsigned k[ITEMS];
+    int g[ITEMS], r[ITEMS];
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j) {
+      const int pos = j * NT + (int)threadIdx.x;
+      const bool live = pos < n;
+      k[j] = live ? keys[pos] : 0u;
+      const int d = live ? (int)((k[j] >> shift) & (SORT_RADIX - 1))
+                         : SORT_RADIX;
+      const unsigned peers = __match_any_sync(FULL, d);
+      r[j] = __popc(peers & below);
+      g[j] = live ? (d * ITEMS + j) * WARPS + warp : -1;
+      if (live && r[j] == 0) hist[g[j]] = __popc(peers);
+    }
+    __syncthreads();
+    block_scan<NT>(hist, GROUPS, warp_tot);
+#pragma unroll
+    for (int j = 0; j < ITEMS; ++j)
+      if (g[j] >= 0) tmp[hist[g[j]] + r[j]] = k[j];
+    __syncthreads();
+    unsigned* t = keys;
+    keys = tmp;
+    tmp = t;
+  }
+  return keys;
+}
 
 // ---------------------------------------------------------------------------
 // Antialias (aa_fwd.cu, aa_bwd.cu)

@@ -8,21 +8,29 @@
 // Bound on the H100: bytes.  Each covered pixel does ~90 float ops for its
 // 18 gradient fields, against reads of the slot plane, five cotangent
 // values and the owner record, and the (cap, 32) output table.  What costs
-// a kernel more is the adding: a float atomicAdd to shared memory is a
-// compare-and-swap loop on this card (ATOMS.CAST.SPIN), and neighbouring
-// pixels mostly share their owner, so one add a pixel and field contends.
+// a kernel more is the adding, and it must add in a fixed order: float
+// atomics (into a shared table, or global ones past its size) add in the
+// order the warps arrive, so two launches on the same inputs would differ
+// in their last bits, and the optimizer's steps on the card would not
+// repeat.
 //
-// Design: one block of 1,024 threads per (camera, tile), a warp a row, one
-// pixel a lane in each of four steps, so that every lane reads its own
-// owner's record at once.  A segmented shuffle scan sums each run of
-// neighbouring lanes that name one slot, and the run's first lane adds the
-// 18 sums: one add a run and field, not one a pixel.  The adds go to a
-// (cap, 18) table in shared memory (55 KB at cap 768), which the block then
-// writes out as whole 32-column rows, zeros in columns 18-31 and in the
-// rows no pixel names.  Past RB_TABLE_MAX the adds go straight to the
-// output with global atomics (native adds in L2); only this block adds to
-// its tile's rows, so it zeroes them itself first, behind a fence and a
-// barrier.  Either way the output needs no memset.
+// Design: one block of 1,024 threads per (camera, tile), sums in a fixed
+// order (common.cuh, "Fixed-order sums"), no float atomics.
+// 1. The block zeroes its tile's (cap, 32) output rows, and keys each of
+//    its 4,096 pixels by slot << 12 | pixel (row * 128 + column; no slot
+//    keys as slot cap), and sorts the keys (ls::block_sort over the slot
+//    bits): each slot's pixels in a row, in pixel order.  A tile with no
+//    covered pixel stops after the zeros.
+// 2. In four steps of 1,024 sorted terms, a lane a term, each warp takes a
+//    chunk of 32 consecutive terms, computes each term's 18 fields from its
+//    owner's record (neighbouring lanes mostly read one record), and sums
+//    each run of lanes on one slot with a segmented shuffle scan into the
+//    run's first lane.  A run that starts and ends in its chunk is a whole
+//    slot: that lane writes the slot's row.  A run cut by a chunk border
+//    leaves its part in the chunk's head (the run that came in) or tail
+//    (the run that goes on) in shared memory.
+// 3. Each field of a slot whose terms span chunks is added by one thread:
+//    the tail of the chunk it starts in, then the heads after, in order.
 // Under row shards the pixel centres are those of the image's tile row
 // t.ty + R0 (pallas_core.py:_bwd_kernel, row0); the planes are the shard's.
 #include "common.cuh"
@@ -77,62 +85,93 @@ __device__ __forceinline__ void pixel_fields(const float4 (&f)[6], float px,
   G[17] = dc2 * w2;
 }
 
-template <bool SMEM>
+constexpr int PIX = ls::TILE_H * ls::TILE_W;          // pixels a tile
+constexpr int PIX_BITS = 12;                            // a pixel's key bits
+static_assert(PIX == 1 << PIX_BITS, "a pixel's place fits its key bits");
+constexpr int CHUNKS = PIX / 32;                        // warp chunks
+constexpr int HIST = ls::SORT_RADIX * ls::RB_STEPS * ls::RB_THREADS / 32;
+
+// dynamic shared bytes: the keys twice, the sort's counts, each chunk's
+// head and tail sums and whether it has a tail
+constexpr size_t SMEM = (2 * PIX + HIST) * 4 +
+                        2 * CHUNKS * ls::RB_SUMS * 4 + CHUNKS * 4;
+
+__device__ __forceinline__ int slot_of(unsigned key) {
+  return (int)(key >> PIX_BITS);
+}
+
+__device__ __forceinline__ void store_row(float* o, const Sums& G) {
+  float4* o4 = reinterpret_cast<float4*>(o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o4[i] = make_float4(G[4 * i], G[4 * i + 1], G[4 * i + 2], G[4 * i + 3]);
+  reinterpret_cast<float2*>(o)[8] = make_float2(G[16], G[17]);
+}
+
 __global__ void __launch_bounds__(ls::RB_THREADS, 1)
 raster_bwd_kernel(const float* __restrict__ rec,
                   const float* __restrict__ slot_plane,
                   const float* __restrict__ dcol, const float* __restrict__ du_p,
                   const float* __restrict__ dv_p, float* __restrict__ out,
                   int TY, int TX, int cap, int H, int W, int R0, float sxs,
-                  float sys) {
-  extern __shared__ float4 tab4[];     // (cap, 18) floats when SMEM
+                  float sys, int slot_bits) {
+  extern __shared__ float4 smem4[];
+  unsigned* keys = reinterpret_cast<unsigned*>(smem4);
+  unsigned* tmp = keys + PIX;
+  int* hist = reinterpret_cast<int*>(tmp + PIX);
+  float* heads = reinterpret_cast<float*>(hist + HIST);   // (CHUNKS, 18)
+  float* tails = heads + CHUNKS * ls::RB_SUMS;            // (CHUNKS, 18)
+  int* has_tail = reinterpret_cast<int*>(tails + CHUNKS * ls::RB_SUMS);
+  __shared__ int warp_tot[32];
   const ls::Tile t = ls::tile_of_block(TY, TX);
   const float* rb = rec + (size_t)t.b * cap * 32;
   float* ob = out + (size_t)t.b * cap * 32;
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  if (SMEM) {
-    for (int i = threadIdx.x; i < (cap * ls::RB_SUMS + 3) / 4; i += blockDim.x)
-      tab4[i] = zero;
-  } else {
-    for (int i = threadIdx.x; i < cap * 8; i += blockDim.x)
-      reinterpret_cast<float4*>(ob)[i] = zero;
-  }
-  float* sums = SMEM ? reinterpret_cast<float*>(tab4) : ob;
-  const int stride = SMEM ? ls::RB_SUMS : 32;
+  for (int i = threadIdx.x; i < cap * 8; i += blockDim.x)
+    reinterpret_cast<float4*>(ob)[i] = zero;
 
-  const int row = threadIdx.x >> 5;
+  // 1. the keys, in pixel order, and their sort
+  const size_t pix0 = ((size_t)t.c * H + t.ty * ls::TILE_H) * W +
+                      t.tx * ls::TILE_W;
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < ls::RB_STEPS; ++j) {
+    const int q = j * ls::RB_THREADS + threadIdx.x;
+    int s = (int)slot_plane[pix0 + (size_t)(q >> 7) * W + (q & 127)];
+    s = s < 0 || s >= cap ? cap : s;
+    any = any || s < cap;
+    keys[q] = ((unsigned)s << PIX_BITS) | (unsigned)q;
+  }
+  if (threadIdx.x < CHUNKS) has_tail[threadIdx.x] = 0;
+  if (!__syncthreads_or(any)) return;
+  const unsigned* S = ls::block_sort<ls::RB_THREADS, ls::RB_STEPS>(
+      keys, tmp, hist, warp_tot, PIX, PIX_BITS, PIX_BITS + slot_bits);
+
+  // 2. the fields of each sorted term, summed by runs within a chunk
   const int lane = threadIdx.x & 31;
-  const size_t pix0 = ((size_t)t.c * H + t.ty * ls::TILE_H + row) * W +
-                      t.tx * ls::TILE_W + lane;
-  const float py = ls::pixel_y(t.ty + R0, row, sys);   // the image's row
-  int slots[ls::RB_STEPS];
-#pragma unroll
+#pragma unroll 1
   for (int k = 0; k < ls::RB_STEPS; ++k) {
-    const int s = (int)slot_plane[pix0 + 32 * k];
-    slots[k] = s < 0 || s >= cap ? -1 : s;
-  }
-  if (!SMEM) __threadfence();          // the zeros reach L2 before any add
-  __syncthreads();
-
-#pragma unroll
-  for (int k = 0; k < ls::RB_STEPS; ++k) {
-    const int s = slots[k];
-    if (!__ballot_sync(ls::FULL, s >= 0)) continue;    // a background step
-    const size_t p = pix0 + 32 * k;
+    const int pos = k * ls::RB_THREADS + threadIdx.x;
+    const unsigned key = S[pos];
+    const int s = slot_of(key);
+    if (!__ballot_sync(ls::FULL, s < cap)) continue;     // background only
     Sums G;
-    if (s >= 0) {
+    if (s < cap) {
+      const int q = (int)(key & (PIX - 1));
+      const int row = q >> 7, col = q & 127;
+      const size_t p = pix0 + (size_t)row * W + col;
       const float* r = rb + (size_t)s * 32;
       float4 f[6];
 #pragma unroll
       for (int j = 0; j < 6; ++j) f[j] = ls::ld4(r + 4 * j);
-      pixel_fields(f, ls::pixel_x(t.tx, lane + 32 * k, sxs), py,
-                   dcol[p * 3], dcol[p * 3 + 1], dcol[p * 3 + 2], du_p[p],
-                   dv_p[p], G);
+      pixel_fields(f, ls::pixel_x(t.tx, col, sxs),
+                   ls::pixel_y(t.ty + R0, row, sys), dcol[p * 3],
+                   dcol[p * 3 + 1], dcol[p * 3 + 2], du_p[p], dv_p[p], G);
     } else {
 #pragma unroll
       for (int q = 0; q < ls::RB_SUMS; ++q) G[q] = 0.0f;
     }
-    // runs of lanes that name one slot: each lane sums to its run's end
+    // runs of lanes on one slot: each lane sums to its run's end
     const int prev = __shfl_up_sync(ls::FULL, s, 1);
     const int next = __shfl_down_sync(ls::FULL, s, 1);
     const unsigned ends = __ballot_sync(ls::FULL, lane == 31 || next != s);
@@ -145,24 +184,38 @@ raster_bwd_kernel(const float* __restrict__ rec,
         if (lane + d <= end) G[q] += o;
       }
     }
-    if (s >= 0 && (lane == 0 || prev != s)) {
-      float* o = sums + (size_t)s * stride;
+    if (s < cap && (lane == 0 || prev != s)) {
+      const int last = pos - lane + end;              // the run's last term
+      const bool starts = pos == 0 || slot_of(S[pos - 1]) != s;
+      const bool stops = last == PIX - 1 || slot_of(S[last + 1]) != s;
+      const int c = pos >> 5;
+      if (starts && stops) {
+        store_row(ob + (size_t)s * 32, G);
+      } else {
+        float* o = (starts ? tails : heads) + c * ls::RB_SUMS;
 #pragma unroll
-      for (int q = 0; q < ls::RB_SUMS; ++q) atomicAdd(o + q, G[q]);
+        for (int q = 0; q < ls::RB_SUMS; ++q) o[q] = G[q];
+        if (starts) has_tail[c] = 1;
+      }
     }
   }
+  __syncthreads();
 
-  if (SMEM) {
-    // whole rows, 16 bytes a thread: sums in columns 0-17, zeros after
-    __syncthreads();
-    for (int i = threadIdx.x; i < cap * 8; i += blockDim.x) {
-      const int r = i >> 3, c = 4 * (i & 7);
-      const float* q = sums + r * ls::RB_SUMS + c;
-      float4 v = zero;
-      if (c < 16) v = make_float4(q[0], q[1], q[2], q[3]);
-      if (c == 16) v = make_float4(q[0], q[1], 0.0f, 0.0f);
-      reinterpret_cast<float4*>(ob)[i] = v;
-    }
+  // 3. slots whose terms span chunks, a field a thread: the tail of the
+  // chunk the slot starts in, then the heads of the chunks after, in order
+  for (int i = threadIdx.x; i < CHUNKS * ls::RB_SUMS; i += blockDim.x) {
+    const int c = i / ls::RB_SUMS, q = i - c * ls::RB_SUMS;
+    const int p0 = 32 * c;
+    const int s = slot_of(S[p0]);
+    if (s >= cap || p0 == 0 || slot_of(S[p0 - 1]) != s) continue;
+    if (p0 + 32 < PIX && slot_of(S[p0 + 31]) == s &&
+        slot_of(S[p0 + 32]) == s)
+      continue;                                  // goes on past the chunk
+    int c0 = c - 1;
+    while (!has_tail[c0]) --c0;
+    float v = tails[c0 * ls::RB_SUMS + q];
+    for (int j = c0 + 1; j <= c; ++j) v += heads[j * ls::RB_SUMS + q];
+    ob[(size_t)s * 32 + q] = v;
   }
 }
 
@@ -174,17 +227,13 @@ extern "C" int ls_raster_bwd(const float* rec, const float* slot,
                              int TX, int cap, int H, int W, int R0,
                              float sxs, float sys, void* stream) {
   const int blocks = C * TY * TX;
-  const size_t table = ((size_t)cap * ls::RB_SUMS + 3) / 4 * 16;
-  const cudaStream_t st = (cudaStream_t)stream;
+  const int slot_bits = ls::bits_for(cap);
+  if (PIX_BITS + slot_bits > 32) return (int)cudaErrorInvalidValue;
   if (blocks == 0) return (int)cudaGetLastError();
-  if (table <= (size_t)ls::RB_TABLE_MAX) {
-    const cudaError_t e = ls::smem_opt_in<raster_bwd_kernel<true>>(table, 0);
-    if (e != cudaSuccess) return (int)e;
-    raster_bwd_kernel<true><<<blocks, ls::RB_THREADS, table, st>>>(
-        rec, slot, dcol, du, dv, out, TY, TX, cap, H, W, R0, sxs, sys);
-  } else {
-    raster_bwd_kernel<false><<<blocks, ls::RB_THREADS, 0, st>>>(
-        rec, slot, dcol, du, dv, out, TY, TX, cap, H, W, R0, sxs, sys);
-  }
+  const cudaError_t e = ls::smem_opt_in<raster_bwd_kernel>(SMEM, 128);
+  if (e != cudaSuccess) return (int)e;
+  raster_bwd_kernel<<<blocks, ls::RB_THREADS, SMEM, (cudaStream_t)stream>>>(
+      rec, slot, dcol, du, dv, out, TY, TX, cap, H, W, R0, sxs, sys,
+      slot_bits);
   return (int)cudaGetLastError();
 }

@@ -48,10 +48,11 @@ renderer's inputs summed over the ranks.  The parameters, the optimizer,
 the solver (``"CG"`` takes the edge-sharded ``ShardedCGSolver``), the
 remesher and the checkpoints (written by rank 0) see replicated state, and
 the host decisions that could part the ranks (a rebin, its route, a time
-budget's end) are taken together.  What the card's float atomics could
-part, the ranks take from rank 0: the solutions of a solve, or with
-``smooth`` off the coordinates' gradients.  Every rank returns the same
-result.
+budget's end) are taken together.  Every sum of a step is added in a fixed
+order on the card (``ops/segment.py``, the tile kernels' sorted sums), so
+the ranks' replicated work gives them the same bits without a broadcast,
+and every rank returns the same result; with the tile rows in two shards
+and the cameras unsplit it is the unsharded run's, bit for bit.
 """
 from __future__ import annotations
 
@@ -77,7 +78,8 @@ from ..core.sparse import coo_matvec
 from ..io.xml_scene import load_scene
 from ..native import remesh as native_remesh
 from ..ops.mesh import average_edge_length, remove_duplicates
-from ..ops.normals import compute_face_normals, compute_vertex_normals
+from ..ops.normals import (compute_face_normals, compute_vertex_normals,
+                           corner_segments)
 from ..parallel import distributed as pdist
 from ..parallel.sharding import gather_images, make_mesh, shard_renderer
 from ..parallel.tri_shard import ShardedCGSolver
@@ -214,34 +216,12 @@ def _make_mesh(p):
 
 def _make_solver(M, p, mesh):
     """The epoch's solver: with a mesh and ``"CG"``, the edge-sharded CG
-    (JAX's ``optimize_shape.py:264-274``); with a mesh otherwise,
-    ``get_solver``'s with rank 0's solutions (:class:`_Rank0Solves`);
-    else ``get_solver``'s."""
-    if mesh is None:
-        return get_solver(M, p["solver"])
-    if p["solver"] == "CG":
+    (JAX's ``optimize_shape.py:264-274``); else ``get_solver``'s, every
+    rank solving the same replicated system to the same bits (the sums
+    before a solve add in a fixed order on the card, ``ops/segment.py``)."""
+    if mesh is not None and p["solver"] == "CG":
         return ShardedCGSolver(M, mesh)
-    return _Rank0Solves(get_solver(M, p["solver"]))
-
-
-class _Rank0Solves:
-    """A replicated solver whose solutions are rank 0's (one broadcast a
-    solve).  On the card the ranks' replicated inputs to a solve (the
-    matrix's coalesced values, u = M v, the backward's gradients) are
-    summed with float atomics and part by ulps; the solutions, which every
-    parameter, remesh and result is read from, must not.
-    ``ShardedCGSolver`` starts from rank 0's right-hand side instead."""
-
-    def __init__(self, solver):
-        self.inner = solver
-        self.tier = solver.tier
-
-    @property
-    def iters(self):
-        return getattr(self.inner, "iters", None)
-
-    def solve(self, b, x0=None):
-        return pdist.broadcast(self.inner.solve(b, x0).contiguous())
+    return get_solver(M, p["solver"])
 
 
 def _make_optimizer(name_or_fn, params, lr):
@@ -520,6 +500,7 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
     n_pix = ref_imgs.numel() * (1 if mesh is None else mesh.size)
     dup = torch.as_tensor(st.duplicate_idx.astype(np.int64), device=dev)
     f_unique = torch.as_tensor(st.f_unique.astype(np.int64), device=dev)
+    corners = corner_segments(f_unique, len(st.v_unique), dev)
     reg = float(p["reg"])
     l1 = p["loss"] == "l1"
     zero = torch.zeros((), device=dev)
@@ -537,8 +518,9 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
             else:
                 v_unique = theta["u"]
         with _span("normals"):
-            fn = compute_face_normals(v_unique, f_unique)
-            n_opt = compute_vertex_normals(v_unique, f_unique, fn)[dup]
+            fn = compute_face_normals(v_unique, f_unique, corners)
+            n_opt = compute_vertex_normals(v_unique, f_unique, fn,
+                                           corners)[dup]
         with _span("render"):
             tr = theta["tr"] if p["use_tr"] \
                 else torch.zeros_like(theta["tr"])
@@ -555,17 +537,11 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
             loss = im_loss + reg * reg_loss
         with _span("backward"):
             loss.backward()
-            if mesh is not None and not p["smooth"]:
-                # no solve hands out rank 0's values here, and on the card
-                # the coordinates' gradients add with float atomics (the
-                # duplicate gather, the normals, L's matvec), which part
-                # the ranks by ulps: the step takes rank 0's
-                pdist.broadcast(theta["u"].grad)
         # always log the bilaplacian magnitude, like reference main.py:200
         logged = (im_loss.detach(), Lv.detach().square().mean())
         if mesh is not None:
             # the image loss summed over the ranks; the logged magnitude,
-            # replicated up to the card's float atomics, their mean
+            # replicated, their mean
             logged = tuple(pdist.all_reduce(torch.stack(
                 [logged[0], logged[1] / mesh.size])))
         if iters is not None:
@@ -617,7 +593,7 @@ def _solver_info(st):
     bytes (:func:`core.multigrid.describe`)."""
     if st.solver is None:
         return None
-    slv = getattr(st.solver, "inner", st.solver)    # under _Rank0Solves
+    slv = st.solver
     big = getattr(slv, "_big", None)
     banded = isinstance(big, BandedSolver)
     info = {"tier": st.solver.tier, "block": big.B if banded else None,

@@ -64,11 +64,13 @@ def epochs(result):
 
 def run(name, scene_name, params, out_subdir, device=None):
     """Run one configuration on ``device`` (the card unless the caller asks
-    for the CPU); write its final mesh, loss CSV and metrics CSV.  Returns
-    (the driver's result, the symmetric Hausdorff distance to the
-    target)."""
+    for the CPU) on the scene ``scene_name`` of SCENES, or on the scene of
+    a dict of ``make_scene`` arguments; write its final mesh, loss CSV and
+    metrics CSV.  Returns (the driver's result, the symmetric Hausdorff
+    distance to the target)."""
     os.makedirs(os.path.join(OUTPUT_DIR, out_subdir), exist_ok=True)
-    scene = make_scene(**SCENES[scene_name])
+    spec = SCENES[scene_name] if isinstance(scene_name, str) else scene_name
+    scene = make_scene(**spec)
     result = optimize_shape(scene, params, device=device)
 
     base = os.path.join(OUTPUT_DIR, out_subdir, name)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .segment import Segments
+
 __all__ = ["remove_duplicates", "average_edge_length", "massmatrix_voronoi",
            "safe_acos"]
 
@@ -92,5 +94,5 @@ def massmatrix_voronoi(verts, faces) -> torch.Tensor:
             cols[j] = torch.where(obtuse, 0.25 * areas, cells[:, j])
         cells = torch.stack(cols, dim=1)
 
-    out = torch.zeros(v.shape[0], dtype=cells.dtype, device=cells.device)
-    return out.index_add_(0, f.reshape(-1), cells.reshape(-1))
+    # each vertex's corners in corner order (a fixed order on the card)
+    return Segments(f.reshape(-1), v.shape[0]).sum(cells.reshape(-1))

@@ -16,11 +16,10 @@ The vectors of CG are replicated: every rank holds the same (n, k) ``x``,
 ``r`` and ``p``, so the norms and the stopping test
 (``core/solvers.py``'s sums of squares, tested every ``CHECK_EVERY``
 iterations) are the same on every rank, bit for bit, and so is the
-decision to stop.  A solve starts from rank 0's right-hand side and
-guess (one broadcast): on the card the ranks' replicated work before a
-solve (the normals' scatter, the vertex gathers' backward) adds with float
-atomics, and one ulp of difference would part their iteration counts and
-with them their collectives.
+decision to stop: the ranks' replicated work before a solve (the normals,
+the vertex gathers' backward) adds in a fixed order on the card
+(``ops/segment.py``), so every rank starts from the same right-hand side
+and guess.
 """
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ import torch
 
 from ..core.solvers import CHECK_EVERY, col_norm, full_fp32
 from ..core.sparse import SparseCOO
-from .distributed import Mesh, all_gather, all_reduce, broadcast
+from .distributed import Mesh, all_gather, all_reduce
 
 __all__ = ["EdgeShards", "sharded_coo_matvec", "sharded_cg_solve",
            "ShardedCGSolver", "sharded_vertex_gather"]
@@ -38,44 +37,55 @@ __all__ = ["EdgeShards", "sharded_coo_matvec", "sharded_cg_solve",
 class EdgeShards:
     """This rank's slice of a CooStructure's nonzeros.
 
-    The nonzeros are padded to a multiple of ``n_shards`` with sentinel
-    entries at row and column ``n`` (a row that is dropped) and cut into
-    ``n_shards`` equal slices; ``rows`` and ``cols`` are all of them
-    (n_shards, S) on the host, ``index`` this rank's on the device.  Built
-    once a topology epoch, as the structure is."""
+    The nonzeros (sorted by row) are cut into ``n_shards`` slices of about
+    equal length at row boundaries, so that each row's entries lie in one
+    slice: a row's partial product is then its whole sum on one rank and
+    0.0 on the others, and the all-reduce gives the unsharded matvec's
+    bits.  The slices are padded to the longest with sentinel entries at
+    row and column ``n`` (a row that is dropped); ``rows`` and ``cols`` are
+    all of them (n_shards, S) on the host, ``index`` this rank's on the
+    device.  Built once a topology epoch, as the structure is."""
 
     def __init__(self, structure, n_shards: int, shard: int = 0,
                  device=None):
         nnz = structure.nnz
         self.n = structure.shape[0]
         self.n_shards, self.shard = int(n_shards), int(shard)
-        S = -(-nnz // self.n_shards)
-        self.pad = S * self.n_shards - nnz
-        self.rows = np.pad(structure.rows, (0, self.pad),
-                           constant_values=self.n).reshape(n_shards, S)
-        self.cols = np.pad(structure.cols, (0, self.pad),
-                           constant_values=self.n).reshape(n_shards, S)
+        rows = structure.rows.astype(np.int64)
+        cuts = [0] + [int(np.searchsorted(rows, rows[s * nnz // n_shards]))
+                      for s in range(1, self.n_shards)] + [nnz]
+        self.cuts = cuts
+        S = max(max(b - a for a, b in zip(cuts, cuts[1:])), 1)
+        self.rows = np.full((self.n_shards, S), self.n, np.int64)
+        self.cols = np.full((self.n_shards, S), self.n, np.int64)
+        for s in range(self.n_shards):
+            a, b = cuts[s], cuts[s + 1]
+            self.rows[s, :b - a] = rows[a:b]
+            self.cols[s, :b - a] = structure.cols[a:b]
         self.S = S
         as_t = lambda a: torch.as_tensor(a[self.shard], dtype=torch.int64,
                                          device=device)
-        # the sentinel column reads row n - 1, times a zero value
-        self.index = (as_t(self.rows),
-                      as_t(np.minimum(self.cols, self.n - 1)))
+        # the sentinel column reads row n - 1, times a zero value; the
+        # slice's rows are sorted, so its sums are segments of them
+        self.index = (as_t(np.minimum(self.cols, self.n - 1)),
+                      torch.as_tensor(np.bincount(self.rows[self.shard],
+                                                  minlength=self.n + 1),
+                                      device=device))
 
     def local_vals(self, vals: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the (padded) value vector."""
-        lo = self.shard * self.S
-        v = vals[lo:lo + self.S]
+        v = vals[self.cuts[self.shard]:self.cuts[self.shard + 1]]
         if v.shape[0] < self.S:
             v = torch.cat([v, v.new_zeros(self.S - v.shape[0])])
         return v
 
 
 def _local_matvec(index, vals, x, n):
-    """The partial product of one slice; the sentinel row n is dropped."""
-    rows, cols = index
-    y = torch.zeros((n + 1, x.shape[1]), dtype=x.dtype, device=x.device)
-    return y.index_add(0, rows, vals[:, None] * x[cols])[:n]
+    """The partial product of one slice, each row's entries added in order
+    (``ops/segment.py``); the sentinel row n is dropped."""
+    cols, lengths = index
+    return torch.segment_reduce(vals[:, None] * x[cols], "sum",
+                                lengths=lengths, axis=0, unsafe=True)[:n]
 
 
 def _shards(M, mesh, shards):
@@ -110,9 +120,6 @@ def _sharded_cg(shards, vals, b, x0, tol, max_iter):
         x0 = None if x0 is None else x0[:, None]
     x = torch.zeros_like(b) if x0 is None else x0
     with torch.no_grad(), full_fp32():
-        k = b.shape[1]
-        bx = broadcast(torch.cat([b, x], dim=1).contiguous())   # rank 0's
-        b, x = bx[:, :k], bx[:, k:]
         r = matvec(x) - b
         p = -r
         r_norm = col_norm(r)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.segment import segment_sum
 from .raster import _faces_tensor, pixel_grid
 
 __all__ = ["antialias", "antialias_dense", "face_adjacency"]
@@ -63,10 +64,13 @@ def _boost(x, factor):
     return x.detach() + factor * (x - x.detach())
 
 
-def _gather_cam(table, idx):
-    """table (C, V) rows at idx (C, ...) → (C, ...)."""
-    return torch.gather(table, 1, idx.reshape(idx.shape[0], -1)) \
-        .reshape(idx.shape)
+def _take(table, idx):
+    """table (C, V, ...) rows at idx (C, N...) → (C, N..., ...), by indexing:
+    its gradient adds in a fixed order on the card, where
+    ``torch.gather``'s adds with atomics."""
+    cam = torch.arange(idx.shape[0], device=idx.device)
+    flat = idx.reshape(idx.shape[0], -1)
+    return table[cam[:, None], flat].reshape(*idx.shape, *table.shape[2:])
 
 
 def _pair_corrections(color_a, color_b, rast_a, rast_b, pa, pb, v_clip,
@@ -105,8 +109,8 @@ def _pair_corrections(color_a, color_b, rast_a, rast_b, pa, pb, v_clip,
     for e in range(3):
         va = fverts[..., e]
         vb = fverts[..., (e + 1) % 3]
-        ax, ay = _gather_cam(sx, va), _gather_cam(sy, va)
-        bx, by = _gather_cam(sx, vb), _gather_cam(sy, vb)
+        ax, ay = _take(sx, va), _take(sy, va)
+        bx, by = _take(sx, vb), _take(sy, vb)
         ex, ey = bx - ax, by - ay
         # the signed edge function at both pixel centres
         ea = ex * (pay - ay) - ey * (pax - ax)
@@ -125,7 +129,7 @@ def _pair_corrections(color_a, color_b, rast_a, rast_b, pa, pb, v_clip,
         # id (−1) must not match the boundary marker −1
         silhouette = (other_id == 0) | (fopp[..., e] != (other_id - 1))
         valid = separates & within & silhouette \
-            & _gather_cam(w_ok, va) & _gather_cam(w_ok, vb)
+            & _take(w_ok, va) & _take(w_ok, vb)
         take = valid & ~best_valid
         best_t = torch.where(take, t, best_t)
         best_valid = best_valid | valid
@@ -199,24 +203,23 @@ def antialias(color, rast, v_clip, faces, opp, pos_gradient_boost=1.0,
 
     pa = torch.stack([xs[pa_idx % W], ys[pa_idx // W]], dim=-1)
     pb = torch.stack([xs[pb_idx % W], ys[pb_idx // W]], dim=-1)
-    take = lambda x, idx: torch.gather(
-        x, 1, idx[..., None].expand(*idx.shape, x.shape[-1]))
     delta_a, delta_b = _pair_corrections(
-        take(col_f, pa_idx), take(col_f, pb_idx), take(rst_f, pa_idx),
-        take(rst_f, pb_idx), pa, pb, vb, faces, opp)
+        _take(col_f, pa_idx), _take(col_f, pb_idx), _take(rst_f, pa_idx),
+        _take(rst_f, pb_idx), pa, pb, vb, faces, opp)
     delta_a = torch.where(valid[..., None], delta_a, 0.0)
     delta_b = torch.where(valid[..., None], delta_b, 0.0)
 
-    # scatter-add; padded and invalid slots go to a spare row per camera,
-    # cut off afterwards
+    # a segment sum (a fixed order on the card) of the corrections, the
+    # a-sides' then the b-sides', each in slot order; padded and invalid
+    # slots go to a spare row per camera, cut off afterwards
     base = (torch.arange(C, device=dev) * (H * W + 1))[:, None]
     tgt_a = (torch.where(valid, pa_idx, H * W) + base).reshape(-1)
     tgt_b = (torch.where(valid, pb_idx, H * W) + base).reshape(-1)
-    out = torch.cat([col_f, col_f.new_zeros(C, 1, D)], dim=1) \
-        .reshape(C * (H * W + 1), D)
-    out = out.index_add(0, tgt_a, delta_a.reshape(-1, D))
-    out = out.index_add(0, tgt_b, delta_b.reshape(-1, D))
-    return out.reshape(C, H * W + 1, D)[:, :H * W].reshape(C, H, W, D)
+    delta = segment_sum(torch.cat([delta_a.reshape(-1, D),
+                                   delta_b.reshape(-1, D)]),
+                        torch.cat([tgt_a, tgt_b]), C * (H * W + 1))
+    out = col_f + delta.reshape(C, H * W + 1, D)[:, :H * W]
+    return out.reshape(C, H, W, D)
 
 
 def antialias_dense(color, rast, v_clip, faces, opp, pos_gradient_boost=1.0):

@@ -275,7 +275,7 @@ def raster_bwd(rec_bwd_b, counts_b, slot, d_col, d_u, d_v, resolution,
     C, ty, tx, cap, _ = rec_bwd_b.shape
     _check_rows("raster_bwd", ty, row0, resolution)
     height, width = ty * TILE_H, resolution[1]
-    # the kernel writes every element (zeros, then adds the sums)
+    # the kernel writes every element (zeros, then each slot's sums once)
     out = torch.empty((C, ty, tx, cap, 32), dtype=torch.float32,
                       device=rec_bwd_b.device)
     sxs, sys_ = _scales(resolution)
@@ -481,6 +481,12 @@ def _aa_scratch(C, ty, tx, cap, device):
     return torch.zeros(n // 8, dtype=torch.int64, device=device) if n else None
 
 
+@functools.lru_cache(maxsize=64)
+def _aa_pairs_bytes(tiles):
+    from .. import _cuda
+    return _cuda.library("aa_bwd", "ls_aa_pairs_bytes")(tiles)
+
+
 def _ptrs(halo, n):
     """The halo rows' data pointers, n Nones without a halo."""
     return (None,) * n if halo is None else tuple(h.data_ptr() for h in halo)
@@ -574,14 +580,19 @@ def aa_bwd(rec_bwd_b, counts_b, fid, z, color, d_out, resolution, row0=0,
                          f"colour's shape {tuple(color.shape)}")
     C, ty, tx, cap, _ = rec_bwd_b.shape
     height, width, D = color.shape[1:]
-    dslot = torch.zeros((C, ty, tx, cap, 8), dtype=torch.float32,
+    # the kernels write every element of dslot; the pair lists need no
+    # zeroing (a strip writes its count and the places it lists)
+    dslot = torch.empty((C, ty, tx, cap, 8), dtype=torch.float32,
                         device=color.device)
     scratch = _aa_scratch(C, ty, tx, cap, color.device)
+    pairs = torch.empty(_aa_pairs_bytes(C * ty * tx), dtype=torch.uint8,
+                        device=color.device)
     sxs, sys_ = _scales(resolution)
     err = _cuda.library("aa_bwd")(
         rec_bwd_b.data_ptr(), counts_b.data_ptr(), fid.data_ptr(),
         z.data_ptr(), color.data_ptr(), d_out.data_ptr(), d_color.data_ptr(),
         dslot.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        pairs.data_ptr(),
         *_ptrs(halo, 4), None if share is None else share.data_ptr(),
         C, ty, tx, cap, height, width, D, int(row0), sxs, sys_, _stream())
     _cuda.check("aa_bwd", err)

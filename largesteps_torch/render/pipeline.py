@@ -41,12 +41,13 @@ import torch
 
 from . import kernels
 from .kernels import TILE_H, TILE_W, BIG
+from ..ops.segment import run_sums, segment_sum
 from ..parallel import distributed as pdist
 
 __all__ = ["triangle_setup", "bin_triangles", "setup_and_bin",
            "setup_from_bins", "bin_triangles_host", "bin_triangles_device",
-           "chain_planes", "build_incidence", "face_ids", "face_sums",
-           "scatter_via_faces",
+           "chain_planes", "build_incidence", "face_ids", "first_half",
+           "face_sums", "scatter_via_faces", "slot_face_rows",
            "scatter_via_slots", "suggest_cap", "check_bin_overflow",
            "RenderPipeline", "RenderPipelineBig", "ABLATE"]
 
@@ -520,15 +521,34 @@ def face_ids(bins, n_faces):
     return ids + (torch.arange(C, device=bins.device) * (n_faces + 1))[:, None]
 
 
-def face_sums(table18, bins, n_faces):
+def first_half(n_rows, row0=0, rows_image=None, device=None):
+    """Whether each of ``n_rows`` tile rows from tile row ``row0`` lies in
+    the first half of the image's ``rows_image`` tile rows (by default
+    ``n_rows``): (n_rows,) bool on ``device`` (made there: a copy from
+    the host would wait for the card), for :func:`face_sums` and
+    :func:`slot_face_rows`."""
+    rows_image = n_rows if rows_image is None else rows_image
+    return (torch.arange(n_rows, device=device) + row0) < rows_image // 2
+
+
+def face_sums(table18, bins, n_faces, upper=None):
     """The per-(camera, face) sums of the slot rows, a sentinel row a
-    camera: (C·(n_faces + 1), 18), by one ``index_add_`` over
-    :func:`face_ids` (the segment sum of ``onehot_scatter``)."""
-    C = table18.shape[0]
-    dface = torch.zeros((C * (n_faces + 1), 18), dtype=table18.dtype,
-                        device=table18.device)
-    return dface.index_add_(0, face_ids(bins, n_faces).reshape(-1),
-                            table18.reshape(-1, 18))
+    camera: (C·(n_faces + 1), 18), the segment sum of ``onehot_scatter``
+    over :func:`face_ids`, in a fixed order (the same bits on every run,
+    where ``index_add_`` on the card adds in no fixed order): each face's
+    slots in the image's first half of tile rows (``upper``, from
+    :func:`first_half`; by default the table's first half) added in slot
+    order, those in the second half likewise, then the two halves.  A run
+    in two row shards adds its halves on two ranks and the same way
+    (:func:`_scatter`), so its sums are the unsharded run's bits."""
+    C, TY = table18.shape[:2]
+    upper = first_half(TY, device=bins.device) if upper is None else upper
+    half = (~upper).to(device=bins.device, dtype=torch.int64)
+    half = half.reshape(1, TY, *([1] * (bins.dim() - 2))).expand(bins.shape)
+    ids = face_ids(bins, n_faces) * 2 + half.reshape(C, -1)
+    sums = segment_sum(table18.reshape(-1, 18), ids.reshape(-1),
+                       2 * C * (n_faces + 1)).reshape(-1, 2, 18)
+    return sums[:, 0] + sums[:, 1]
 
 
 def scatter_via_faces(table18, bins, incidence, n_faces, n_verts):
@@ -543,22 +563,42 @@ def scatter_via_faces(table18, bins, incidence, n_faces, n_verts):
     return _faces_to_vertices(dface.reshape(C, n_faces + 1, 18), incidence)
 
 
-def scatter_via_slots(table18, fslots, incidence, n_verts):
-    """Slot gradients → vertex gradients through the face→slot inverse of
-    the bins: each face gathers and sums its K slots' rows.
-
-    table18 (C, TY, TX, cap, 18); fslots (C, F+1, K) flat slot indices with
-    sentinel T·cap (a zero row).  Returns (dv_clip (C, V, 4), d_attrs
-    (V, 3)).
-    """
-    C = table18.shape[0]
+def slot_face_rows(table18, fslots, upper=None):
+    """The per-(camera, face) sums (C, F+1, 18) of the slot rows that each
+    face's K slots name (fslots (C, F+1, K) flat slot indices in tile
+    order, sentinel T·cap a zero row), in :func:`face_sums`' order: the
+    slots in the first half of tile rows (``upper``) in turn, those in the
+    second, then the two halves.  In tile order a face's slots in the
+    first half come before those in the second, so each half is one run of
+    its K slots (a sentinel, a zero row, joins the run it sits in)."""
+    C, TY, TX, cap = table18.shape[:4]
+    upper = first_half(TY, device=table18.device) if upper is None \
+        else upper
     table = table18.reshape(C, -1, 18)
     table = torch.cat([table, table.new_zeros(C, 1, 18)], dim=1)
     Fp1, K = fslots.shape[1:]
     cam = torch.arange(C, device=table.device)[:, None]
     gathered = table[cam, fslots.reshape(C, -1)]            # (C, (F+1)·K, 18)
-    return _faces_to_vertices(gathered.reshape(C, Fp1, K, 18).sum(dim=2),
-                              incidence)
+    row = torch.clamp(fslots // (cap * TX), max=TY - 1)
+    up = upper.to(table.device)[row] & (fslots < TY * TX * cap)
+    k = torch.arange(1, K + 1, device=table.device)
+    n_up = (up * k).amax(dim=2)          # past the face's last upper slot
+    lengths = torch.stack([n_up, K - n_up], dim=2).reshape(-1)
+    halves = run_sums(gathered.reshape(-1, 18), lengths).reshape(C, Fp1, 2,
+                                                                 18)
+    return halves[:, :, 0] + halves[:, :, 1]
+
+
+def scatter_via_slots(table18, fslots, incidence, n_verts):
+    """Slot gradients → vertex gradients through the face→slot inverse of
+    the bins: each face gathers and sums its K slots' rows
+    (:func:`slot_face_rows`).
+
+    table18 (C, TY, TX, cap, 18); fslots (C, F+1, K) flat slot indices with
+    sentinel T·cap (a zero row).  Returns (dv_clip (C, V, 4), d_attrs
+    (V, 3)).
+    """
+    return _faces_to_vertices(slot_face_rows(table18, fslots), incidence)
 
 
 def _faces_to_vertices(dface, incidence):
@@ -783,16 +823,51 @@ def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g,
 
 def _scatter(pipe, table18, bins, fslots, incidence, n_verts):
     """The chained per-slot table → (dv_clip (C, V, 4), d_attrs (V, 3)):
-    through the face→slot inverse where the pipe takes one, else through
-    the per-face table; zeros where the scatter is ablated."""
+    the per-face table, through the face→slot inverse where the pipe takes
+    one; zeros where the scatter is ablated.  On a row shard the per-face
+    table is the shard's half of each face's sums (:func:`face_sums`), and
+    :func:`_row_face_table` completes it over the mesh row: every rank
+    then holds the whole table, at two shards the unsharded run's bits,
+    and the vertex gradients need no reduction over rows."""
+    C = table18.shape[0]
     if pipe.ablate == "scatter":
-        C = table18.shape[0]
         return (table18.new_zeros((C, n_verts, 4)),
                 table18.new_zeros((n_verts, 3)))
+    upper = first_half(pipe.ty, pipe.row0, pipe.resolution[0] // TILE_H,
+                       table18.device)
     if fslots:
-        return scatter_via_slots(table18, fslots[0], incidence, n_verts)
-    return scatter_via_faces(table18, bins, incidence, pipe.faces.shape[0],
-                             n_verts)
+        dface = slot_face_rows(table18, fslots[0], upper)
+    else:
+        F = pipe.faces.shape[0]
+        dface = face_sums(table18, bins, F, upper).reshape(C, F + 1, 18)
+    if pipe.row_shards > 1:
+        dface = _row_face_table(dface, pipe.mesh)
+    return _faces_to_vertices(dface, incidence)
+
+
+def _row_face_table(dface, mesh):
+    """The per-face table of a mesh row from its row shards' parts, added
+    in shard order (((d0 + d1) + d2) + ...): the same bits on every rank
+    of the row and, at two shards, those of ``d0 + d1`` in any order, the
+    unsharded table.  A shard's part is nonzero only on the faces its rows
+    draw, so the shards swap those rows, each with its row index, and not
+    the table."""
+    flat = dface.reshape(-1, 18)
+    live = (flat.view(torch.int32) != 0).any(dim=1).nonzero().squeeze(1)
+    n = [int(k) for k in pdist.all_gather(
+        torch.tensor([live.numel()], device=flat.device), mesh.sp_group)]
+    packed = torch.cat([live.to(torch.int32)[:, None],
+                        flat[live].view(torch.int32)], dim=1)
+    packed = torch.cat([packed, packed.new_zeros(max(n) - len(live), 19)])
+    total = None
+    for s, (k, got) in enumerate(zip(n, pdist.all_gather(packed,
+                                                         mesh.sp_group))):
+        part = flat
+        if s != mesh.sp_index:
+            part = torch.zeros_like(flat)
+            part[got[:k, 0].long()] = got[:k, 1:].view(torch.float32)
+        total = part if total is None else total + part
+    return total.reshape(dface.shape)
 
 
 def _tiled(pipe, n_cams, *tensors):

@@ -27,6 +27,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.segment import segment_sum
+
 __all__ = ["rasterize", "interpolate", "pixel_grid"]
 
 BIG = 3.4e38
@@ -155,9 +157,8 @@ class _Rasterize(torch.autograd.Function):
             dt, = torch.autograd.grad((u, v), tri, (du, dv))
         dt = torch.where(covered[..., None, None], dt, 0.0)
         cam = torch.arange(C, device=v_clip.device)[:, None, None, None] * V
-        dvc = torch.zeros((C * V, 4), dtype=v_clip.dtype,
-                          device=v_clip.device)
-        dvc.index_add_(0, (fidx + cam).reshape(-1), dt.reshape(-1, 4))
+        # each vertex's pixels in pixel order (a fixed order on the card)
+        dvc = segment_sum(dt.reshape(-1, 4), (fidx + cam).reshape(-1), C * V)
         return dvc.reshape(C, V, 4), None, None, None, None
 
 

@@ -220,10 +220,14 @@ class Renderer:
         pipe is chosen by :meth:`camera_sequential`.  On a rank's shard the
         images are the rank's cameras and rows, the bins the rank's cameras
         (whole images; the pipe takes its rows), and the gradients of ``v``
-        and ``n`` the sums over every rank; the face→slot inverse is not
-        used there (JAX's sharded pipes scatter by faces)."""
+        and ``n`` the sums over every rank (a row shard's pipe sums over its
+        mesh row, :class:`_SumGrads` over the cameras' ranks); the face→slot
+        inverse is not used there (JAX's sharded pipes scatter by faces)."""
         if self.mesh is not None:
-            v, n = _SumGrads.apply(self.mesh, v, n)
+            if self.row_shards == 1:      # cameras over the ranks
+                v, n = _SumGrads.apply(None, v, n)
+            elif self.mesh.dp > 1:        # rows summed in the pipe
+                v, n = _SumGrads.apply(self.mesh.dp_group, v, n)
         if self.backend == "dense":
             if bins is not None:
                 raise ValueError("bins are the tiles backend's")
@@ -277,13 +281,17 @@ class Renderer:
 
 class _SumGrads(torch.autograd.Function):
     """The identity on the renderer's replicated inputs (v, n), whose
-    backward sums their gradients over every rank of the mesh: each rank's
-    images hold only its shard's share of them (``shard_map``'s ``psum`` of
-    replicated cotangents).  One all-reduce for both; every rank gets the
+    backward sums their gradients over the ranks of ``group`` (None: every
+    rank of the mesh): each rank's images hold only its shard's share of
+    them (``shard_map``'s ``psum`` of replicated cotangents).  A row-sharded
+    tile pipe completes its per-face sums over its mesh row itself
+    (``pipeline._scatter``), so there the group is the ranks of the other
+    cameras (``dp_group``).  One all-reduce for both; every rank gets the
     same bits, so the replicated state stays replicated."""
 
     @staticmethod
-    def forward(ctx, mesh, v, n):
+    def forward(ctx, group, v, n):
+        ctx.group = group
         ctx.shapes, ctx.device = (v.shape, n.shape), v.device
         return v.view_as(v), n.view_as(n)
 
@@ -295,6 +303,6 @@ class _SumGrads(torch.autograd.Function):
         if gn is None:
             gn = torch.zeros(sn, device=ctx.device)
         flat = torch.cat([gv.reshape(-1), gn.reshape(-1)])
-        pdist.all_reduce(flat)
+        pdist.all_reduce(flat, group=ctx.group)
         k = gv.numel()
         return None, flat[:k].reshape(sv), flat[k:].reshape(sn)

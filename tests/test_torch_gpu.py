@@ -11,10 +11,10 @@ a card they skip: the kernels have no CPU mode.
 Inputs: icosphere-4 (5,120 faces) in one view, attributes, colours and
 cotangents from a numpy seed.
 
-* ``cuda_case`` (all four kernels): 128×128 at the fitted cap (raster_bwd's
-  per-slot table and the antialias owner tables sit in shared memory) and at
-  cap 9216 (neither fits: global atomics, and one owner table a tile in a
-  global scratch); 256×256 at the fitted cap and at cap 9216, two tiles each
+* ``cuda_case`` (all four kernels): 128×128 at the fitted cap (the
+  antialias owner tables sit in shared memory) and at cap 9216 (one owner
+  table a tile in a global scratch; raster_bwd's sort over more slot
+  bits); 256×256 at the fitted cap and at cap 9216, two tiles each
   way, so antialias pairs cross tile borders in both directions and, at cap
   9216, blocks share their neighbours' global tables.
 * ``aa_bins`` (the antialias kernels) at 256×256, bins built to stress the
@@ -63,12 +63,14 @@ cotangents from a numpy seed.
   Laplacian with its gradient, on the card against the CPU.
 * ``to_differential`` on the card: the host's sum, the same bits every
   call.
+* The fixed-order sums: raster_bwd and aa_bwd launched twice on the same
+  inputs, and two 5-step runs of the main path, the same bits.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
-plain version's operations in order); per-slot sums 1e-5 × max|sum| (atomics
-add in another order than ``index_add_``, and so do onehot_scatter's and
-probe_tile's sums); probe_tile's fields exact; bins exact; the banded solve
+plain version's operations in order); per-slot sums 1e-5 × max|sum| (the
+kernels add in another order than ``index_add_``, and so do
+onehot_scatter's and probe_tile's sums); probe_tile's fields exact; bins exact; the banded solve
 1e-5 relative; pipe and dense images 1e-5 absolute and gradients 1e-4 ×
 max|g| (the projection and the glue run as PyTorch's CUDA kernels); the
 remeshed run's topology exact and its losses 1e-4 relative; the host
@@ -1103,8 +1105,9 @@ def test_gpu_two_rank_driver(solver):
 @pytest.mark.gpu
 def test_gpu_to_differential_is_the_hosts_sum():
     """u = M v of CUDA tensors: the same bits in repeated calls and as the
-    product of the same tensors on the CPU, on the card (a device
-    ``index_add_`` adds with float atomics, whose order varies)."""
+    product of the same tensors on the CPU (both add each row's entries in
+    order; a device ``index_add_`` would add with float atomics, whose
+    order varies)."""
     from largesteps_torch.core.geometry import compute_matrix
     from largesteps_torch.core.parameterize import to_differential
     from largesteps_torch.ops.shapes import icosphere
@@ -1119,3 +1122,36 @@ def test_gpu_to_differential_is_the_hosts_sum():
     for u in got:
         assert u.device.type == "cuda"
         torch.testing.assert_close(u.cpu(), want, rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [4, 3])            # shaded, silhouette
+def test_gpu_bwd_kernels_repeat_to_the_bit(cuda_case, D):
+    """raster_bwd and aa_bwd add their per-slot sums in a fixed order: two
+    launches on the same inputs give the same bits."""
+    c = cuda_case
+    raster = lambda: K.raster_bwd(c["rbb"], c["counts"], c["fwd"][4],
+                                  c["d_col"], c["d_u"], c["d_v"], c["res"])
+    assert torch.equal(raster(), raster())
+    args = (c["rbb"], c["counts"], c["fwd"][3], c["fwd"][2],
+            c["col4"][..., :D].contiguous(),
+            c["d_out"][..., :D].contiguous(), c["res"])
+    a, b = K.aa_bwd(*args), K.aa_bwd(*args)
+    assert float(a[1].abs().max()) > 0.0
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_gpu_main_path_repeats_to_the_bit():
+    """Two 5-step runs of the main path (``bench.py:bench_step``'s scene,
+    13 views at 256²) on the card: the same bits in every loss and in the
+    final vertices."""
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.profiling import MAIN_PATH_PARAMS, main_path_scene
+    dev = _card()
+    scene = main_path_scene()
+    runs = [optimize_shape(scene, {**MAIN_PATH_PARAMS, "steps": 5},
+                           device=dev) for _ in range(2)]
+    assert np.isfinite(runs[0]["losses"]).all()
+    assert np.array_equal(runs[0]["losses"], runs[1]["losses"])
+    assert np.array_equal(runs[0]["v_final"], runs[1]["v_final"])

@@ -409,19 +409,25 @@ def test_halo_swaps(suite, sp):
 
 @pytest.mark.parametrize("kind,sp,shading", PIPES)
 def test_row_sharded_pipe(suite, kind, sp, shading):
-    """Each rank's rows of the images equal the unsharded pipe's; the
-    gradients of v (over a mesh row) and of the attributes (over every
-    rank) sum to the unsharded pipe's."""
+    """Each rank's rows of the images equal the unsharded pipe's; every
+    rank of a mesh row holds the whole gradient of v of its cameras (the
+    pipe completes the per-face sums over the row), and the gradients of
+    the attributes of one rank a mesh row (its cameras' share) sum to the
+    unsharded pipe's.  At two shards the gradient of v is the unsharded
+    pipe's bits (the halves of each face's sums are added as there)."""
     got = _result(suite, f"pipe_{kind}_sp{sp}_{int(shading)}")
     case = pipe_case(kind, sp, shading)
     out, dv, da = run_pipe(case, kind, shading)
-    dv_sum, da_sum = np.zeros_like(dv), np.zeros_like(da)
-    for g in got:
+    da_sum = np.zeros_like(da)
+    for rank, g in enumerate(got):
         o, v, a = g["out"]
         np.testing.assert_allclose(o, out[g["cams"], g["rows"]], atol=1e-5)
-        dv_sum[g["cams"]] += v
-        da_sum += a
-    np.testing.assert_allclose(dv_sum, dv, atol=1e-4 * np.abs(dv).max())
+        np.testing.assert_allclose(v, dv[g["cams"]],
+                                   atol=1e-4 * np.abs(dv).max())
+        if sp == 2:
+            np.testing.assert_array_equal(v, dv[g["cams"]])
+        if rank % sp == 0:
+            da_sum += a
     np.testing.assert_allclose(da_sum, da, atol=1e-4 * np.abs(da).max())
 
 
