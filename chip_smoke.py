@@ -4,7 +4,8 @@
 
 Builds the hand-written CUDA kernels from ``largesteps_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes, holds a
-2-view render on the card against the same render on the CPU, and runs the
+2-view render on the card against the same render on the CPU (and the
+unfused ``render_core``, forward and backward, likewise), and runs the
 main path (the ``bench.py:bench_step`` scene: icosphere-4 fitted to gourd-4,
 13 views at 256², shaded, boost 3, λ = 19, l2 loss, AdamUniform) for 20
 steps through the port's ``optimize_shape``.  Then the large-F path at the
@@ -48,8 +49,12 @@ raster_bwd and aa_bwd launched twice on the same inputs, at the main
 path's shapes and at nefertiti's cap, give the same bits, and so do two
 runs each of the main path, the main path under ``"CG"``, the dense path
 and the teaser's ``ours`` leg, in every loss and final vertex), the figure
-experiments this slice ported (``figures``: the ``--quick`` legs of
-viewpoints, influence and reg_fail) and the port's benchmark (``bench``:
+experiments (``figures``: the ``--quick`` legs of
+viewpoints, influence and reg_fail), the figures' mesh pictures (``vis``:
+``render_mesh_image`` on the card against the CPU, the teaser mesh's panel
+against the dense rasterizer, every mesh panel of the run's outputs; the
+card's host has no matplotlib, so the figures are drawn elsewhere) and the
+port's benchmark (``bench``:
 the functions of ``largesteps_torch.benchmarks.bench``, the nefertiti
 line at 10 steps, the sharded-CG lines), the tile kernels' launches
 counted around each.  Prints one JSON line per phase, then the kernel
@@ -77,12 +82,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from largesteps_torch.profiling import CHIP_SPECS  # noqa: E402
+
 SEED = 0
 STEPS = 20
-# published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32
+# published H100 SXM peaks (profiling.CHIP_SPECS): HBM3 bytes/s, float32
 # non-tensor FLOP/s; the card's power limit is printed beside every number
-PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
+PEAK_BYTES = CHIP_SPECS["h100"]["hbm_gbps"] * 1e9
+PEAK_F32 = CHIP_SPECS["h100"]["fp32_tflops"] * 1e12
 # float ops counted per unit of work (from the arithmetic in csrc/*.cu):
 FLOPS_Z_TEST = 22        # raster_fwd: one slot tested at one pixel
 FLOPS_FINISH = 20        # raster_fwd: interpolation at a covered pixel
@@ -113,7 +120,8 @@ REPEATS = {}
 TWICE = {}
 # the earlier phases whose runs a phase reuses, which --only runs with it
 NEEDS = {"determinism": ("kernels", "main_path", "dense_path",
-                         "large_f_kernels", "sharding")}
+                         "large_f_kernels", "sharding"),
+         "vis": ("fit_quality", "remesh", "figures")}
 # the micro-benchmarks' kernels: float ops a valid entry (onehot_scatter:
 # one add a channel) and a covered pixel (probe_tile: 18 products, 18 adds)
 FLOPS_PROBE_PIXEL = 36
@@ -606,7 +614,61 @@ def phase_render_cpu_vs_card(card):
           "dn_max_abs": e_n, "dn_scale": s_n,
           "tolerance": "images 1e-5 abs, gradients 1e-4 x max|g|",
           "card": card})
-    return passed
+    core_ok, launches = render_core_card_vs_cpu(scene, card)
+    return passed and core_ok, launches
+
+
+def render_core_card_vs_cpu(scene, card):
+    """``render_core`` (the unfused rasterize + interpolate: raster_fwd,
+    and raster_bwd in its backward) on the same 2 views at 256², card
+    against CPU, forward and backward under random cotangents on the colour
+    and on (u, v): ids and slots exact, u, v and colour 1e-5, the gradients
+    of v_clip and of the attributes 1e-4 x max|g|.  Returns (passed, the
+    tile kernels' launches on the card)."""
+    from largesteps_torch.render.antialias import face_adjacency
+    from largesteps_torch.render.camera import project
+    from largesteps_torch.render.renderer import Renderer
+    from largesteps_torch.render.tile_raster import make_render_core
+    f = scene["mesh-source"]["faces"]
+    rng = np.random.default_rng(SEED)
+    attrs = rng.normal(size=(len(scene["mesh-source"]["vertices"]), 3))
+    wc = rng.normal(size=(2, 256, 256, 3)).astype(np.float32)
+    wu = rng.normal(size=(2, 256, 256, 2)).astype(np.float32)
+    core = make_render_core(f, face_adjacency(f), (256, 256))
+    launches = _zero_launches()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        vc = project(torch.as_tensor(scene["mesh-source"]["vertices"],
+                                     device=dev),
+                     Renderer(scene, device=dev).mvps).requires_grad_(True)
+        at = torch.as_tensor(attrs.astype(np.float32),
+                             device=dev).requires_grad_(True)
+        rast, slot, col = core(vc, at)
+        ((torch.as_tensor(wc, device=dev) * col).sum()
+         + (torch.as_tensor(wu, device=dev) * rast[..., :2]).sum()
+         ).backward()
+        out[dev] = [t.detach().cpu() for t in (rast, slot, col, vc.grad,
+                                               at.grad)]
+        if dev == "cuda":
+            launches = dict(launches)
+    (r1, s1, c1, gv1, ga1), (r0, s0, c0, gv0, ga0) = out["cuda"], out["cpu"]
+    errs = {"ids": max_abs(r1[..., 3], r0[..., 3]),
+            "slot": max_abs(s1, s0), "uv": max_abs(r1[..., :2], r0[..., :2]),
+            "color": max_abs(c1, c0), "dv_clip": max_abs(gv1, gv0),
+            "d_attrs": max_abs(ga1, ga0)}
+    scales = {"dv_clip": float(gv0.abs().max()),
+              "d_attrs": float(ga0.abs().max())}
+    passed = (errs["ids"] == 0.0 and errs["slot"] == 0.0
+              and errs["uv"] <= 1e-5 and errs["color"] <= 1e-5
+              and all(0 < scales[k] and errs[k] <= 1e-4 * scales[k]
+                      for k in scales)
+              and launches["raster_fwd"] >= 1 and launches["raster_bwd"] >= 1)
+    emit({"phase": "render_core_card_vs_cpu", "passed": passed,
+          "max_abs": errs, "grad_scale": scales, "cap": core.cap,
+          "covered": int((r0[..., 3] > 0).sum()), "launches": launches,
+          "tolerance": "ids and slots exact, u v colour 1e-5 abs, "
+                       "gradients 1e-4 x max|g|", "card": card})
+    return passed, launches
 
 
 def phase_main_path(card):
@@ -2063,6 +2125,217 @@ def phase_figures(card):
     return passed, launches
 
 
+# the figures' mesh panels (largesteps_torch/figures/draw.py): the
+# experiments that draw their final meshes, and the panel's resolution
+PANEL_RES = {"comparison": 320, "multiscale": 384, "reg_fail": 320,
+             "teaser": 320}
+VIS_MAIN_RES = (384, 320)       # mesh_panel's (tiles), a grid's (dense)
+VIS_CPU_RES = (256, 192)        # card against CPU: tiles, dense
+VIS_TEASER_RES = 384
+JAX_VIS_CAP = 768               # largesteps_tpu/vis.py's Renderer default
+# a face id that differs from the dense rasterizer's passes when the pixel
+# centre lies this close to the boundary of the face in dispute (float32
+# edge functions at these sizes round some 1e-5 px apart; the faces are
+# ~0.5 px across)
+EDGE_EPS_PX = 1e-3
+
+
+def _flips(rast_a, rast_b):
+    """Pixels whose face ids differ between two rasterizations, split into
+    depth ties (both covered, depths equal to 1e-6 relative: two faces
+    meeting at the pixel centre) and the rest."""
+    fa, fb = rast_a[..., 3], rast_b[..., 3]
+    flip = fa != fb
+    both = flip & (fa > 0) & (fb > 0)
+    tie = both & ((rast_a[..., 2] - rast_b[..., 2]).abs()
+                  <= 1e-6 * rast_b[..., 2].abs())
+    return {"differ": int(flip.sum()), "depth_ties": int(tie.sum()),
+            "other": int((flip & ~tie).sum()),
+            "covered": int((fb > 0).sum())}
+
+
+def _edge_px(v_clip, faces, rast_a, rast_b):
+    """For each pixel where two rasterizations drew different faces: the
+    distance in pixels, in float64, from its centre to the boundary of the
+    face in dispute.  That is the face that one drew and the other did not
+    (the nearer of the two, or the only one), or at a depth tie (``_flips``)
+    the farther from its boundary of the two, since a tie is where two
+    faces meet."""
+    fa, fb = rast_a[..., 3].long(), rast_b[..., 3].long()
+    za, zb = rast_a[..., 2], rast_b[..., 2]
+    cam, row, col = torch.nonzero(fa != fb, as_tuple=True)
+    if cam.numel() == 0:
+        return []
+    a, b = fa[cam, row, col], fb[cam, row, col]
+    za, zb = za[cam, row, col], zb[cam, row, col]
+    both = (a > 0) & (b > 0)
+    tie = both & ((za - zb).abs() <= 1e-6 * zb.abs())
+    height, width = rast_a.shape[1:3]
+    p = torch.stack([col, row], -1).double().cpu()[:, None] + 0.5
+
+    def dist(face):                 # pixel centre to the face's boundary
+        tri = v_clip[cam[:, None], faces[(face - 1).clamp_min(0)]]
+        tri = tri.double().cpu()                                # (N, 3, 4)
+        e0 = torch.stack([(tri[..., 0] / tri[..., 3] + 1) * width / 2,
+                          (tri[..., 1] / tri[..., 3] + 1) * height / 2], -1)
+        d = e0.roll(-1, dims=1) - e0                            # 3 edges
+        t = (((p - e0) * d).sum(-1) / (d * d).sum(-1).clamp_min(1e-300)) \
+            .clamp(0, 1)
+        return (p - (e0 + t[..., None] * d)).norm(dim=-1).min(dim=1).values
+
+    da, db = dist(a), dist(b)
+    near_a = torch.where(both, za <= zb, a > 0).cpu()
+    out = torch.where(tie.cpu(), torch.maximum(da, db),
+                      torch.where(near_a, da, db))
+    return [float(x) for x in out]
+
+
+def phase_vis(card):
+    """The port's ``vis`` on the card.  ``render_mesh_image`` of the main
+    path's icosphere-4, with the wireframe and a highlight, at the panels'
+    384² (tiles) and 320² (dense) on the card: finite, of its shape, both
+    masks drawn; and at 256² (tiles) and 192² (dense) against the same call
+    on the CPU (the plain versions): images 1e-5, the wireframe and
+    highlight masks exact.  The teaser's nefertiti mesh (icosphere-7,
+    327,680 faces) at 384²: its panel's time, and the face ids the tile
+    kernels draw at the cap the panel sizes against the dense rasterizer's
+    on the card: equal but at pixels whose centre lies within
+    ``EDGE_EPS_PX`` of the boundary of the face in dispute (each distance
+    printed; depth ties and the rest counted apart), at most 1 in 10⁴ of
+    the covered pixels;
+    beside the same at JAX's unsized cap of 768, and the tiles whose bins
+    pass 768 (counted on the CPU).
+    ``self_intersections`` on two triangles that cross and on a closed
+    sphere.  Every mesh panel the figures draw from this run's outputs
+    (``fit_quality``, ``remesh``, ``figures``) rendered on the card: finite,
+    of its shape, its time.  The card's host has no matplotlib, so the
+    figures themselves are drawn elsewhere from these outputs
+    (``python -m largesteps_torch.figures.draw``).  The tile kernels'
+    launches are counted around the phase."""
+    from largesteps_torch import vis
+    from largesteps_torch.figures import common
+    from largesteps_torch.io.ply import read_ply
+    from largesteps_torch.ops.shapes import icosphere
+    from largesteps_torch.profiling import main_path_scene, large_f_scene
+    from largesteps_torch.render.camera import project
+    from largesteps_torch.render.pipeline import (bin_triangles,
+                                                  triangle_setup)
+    from largesteps_torch.render.raster import rasterize
+    from largesteps_torch.render.tile_raster import rasterize_tiles_fwd
+    launches = _zero_launches()
+    checks, out = {}, {}
+    scene = main_path_scene(seed=SEED)
+    v, f = scene["mesh-source"]["vertices"], scene["mesh-source"]["faces"]
+    hl = np.arange(0, len(f), 37)
+    for res in VIS_MAIN_RES:
+        t0 = time.perf_counter()
+        img, *masks, r = vis.render_panel(v, f, res=res, wireframe=True,
+                                          highlight_faces=hl, device="cuda")
+        ok = (img.shape == (res, res, 3) and bool(np.isfinite(img).all())
+              and all(m.any() for m in masks))
+        out[f"card_{res}"] = {"backend": r.backend,
+                              "mask_pixels": [int(m.sum()) for m in masks],
+                              "s": time.perf_counter() - t0, "passed": ok}
+        checks[f"card_{res}"] = ok
+    for res in VIS_CPU_RES:
+        imgs, masks, secs = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            imgs[dev], *masks[dev], r = vis.render_panel(
+                v, f, res=res, wireframe=True, highlight_faces=hl,
+                device=dev)
+            secs[dev] = time.perf_counter() - t0
+        err = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
+        same = [bool(np.array_equal(a, b))
+                for a, b in zip(masks["cuda"], masks["cpu"])]
+        backend = r.backend
+        ok = (err <= 1e-5 and all(same) and imgs["cuda"].shape == (res, res, 3)
+              and bool(np.isfinite(imgs["cuda"]).all())
+              and all(m.any() for m in masks["cuda"]))
+        out[f"main_{res}"] = {"backend": backend, "img_max_abs": err,
+                              "masks_equal": same,
+                              "mask_pixels": [int(m.sum())
+                                              for m in masks["cuda"]],
+                              "s": secs, "passed": ok}
+        checks[f"main_{res}"] = ok
+
+    # the teaser's mesh: its panel, and its face ids against the dense ones
+    big = large_f_scene(seed=SEED)
+    vb, fb = big["mesh-source"]["vertices"], big["mesh-source"]["faces"]
+    t0 = time.perf_counter()
+    img, _, _, renderer = vis.render_panel(vb, fb, res=VIS_TEASER_RES,
+                                           device="cuda")
+    secs = time.perf_counter() - t0
+    res2 = (VIS_TEASER_RES, VIS_TEASER_RES)
+    with torch.no_grad():
+        faces = torch.as_tensor(fb.astype(np.int64), device="cuda")
+        v_ndc = project(torch.as_tensor(vb, device="cuda"), renderer.mvps)
+        dense = rasterize(v_ndc, faces, res2, 256)
+        tiles = rasterize_tiles_fwd(v_ndc, faces, res2, renderer.bin_cap)
+        sized = _flips(tiles, dense)
+        edge_px = _edge_px(v_ndc, faces, tiles, dense)
+        at_jax = _flips(rasterize_tiles_fwd(v_ndc, faces, res2, JAX_VIS_CAP),
+                        dense)
+        # the bins' occupancy a tile at JAX's cap, counted on the CPU
+        vc, fc = v_ndc.cpu(), faces.cpu()
+        rec_fwd, _ = triangle_setup(vc, fc, torch.zeros((len(vb), 3)),
+                                    torch.zeros_like(fc), *res2)
+        counts = bin_triangles(rec_fwd, vc, fc, *res2, 8)[1]
+    sized["edge_px"] = edge_px
+    ok = (sized["differ"] <= sized["covered"] // 10_000
+          and len(edge_px) == sized["differ"]
+          and all(d <= EDGE_EPS_PX for d in edge_px)
+          and bool(np.isfinite(img).all()) and img.shape == (*res2, 3))
+    out["teaser_mesh"] = {
+        "faces": len(fb), "res": VIS_TEASER_RES, "cap": renderer.bin_cap,
+        "occupancy_max": int(counts.max()), "panel_s": secs,
+        "fids_vs_dense": sized, f"fids_vs_dense_at_cap_{JAX_VIS_CAP}": at_jax,
+        f"tiles_over_{JAX_VIS_CAP}": int((counts > JAX_VIS_CAP).sum()),
+        "tiles": int(counts.numel()), "passed": ok}
+    checks["teaser_mesh"] = ok
+
+    # self-intersections: two crossing triangles, and a closed sphere
+    cross_v = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0.2, 0.2, -0.5],
+                        [0.2, 0.2, 0.5], [0.8, 0.1, 0]], np.float64)
+    cross = vis.self_intersections(cross_v, np.array([[0, 1, 2], [3, 4, 5]]))
+    sphere = vis.self_intersections(*icosphere(2))
+    checks["self_intersections"] = cross == [0, 1] and sphere == []
+    out["self_intersections"] = {"crossing": cross, "sphere": sphere}
+
+    # every mesh panel of this run's figures, on the card
+    panels = {}
+    for exp, res in PANEL_RES.items():
+        d = os.path.join(common.OUTPUT_DIR, exp)
+        for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
+            if not name.endswith("_final.ply"):
+                continue
+            mesh = read_ply(os.path.join(d, name))
+            t0 = time.perf_counter()
+            img = vis.render_mesh_image(mesh["vertices"], mesh["faces"],
+                                        res=res, device="cuda")
+            panels[f"{exp}/{name}"] = {
+                "faces": len(mesh["faces"]), "res": res,
+                "s": time.perf_counter() - t0,
+                "ok": bool(np.isfinite(img).all())
+                and img.shape == (res, res, 3)
+                and float(np.percentile(img, 99.5)) > 0}
+    checks["panels"] = bool(panels) and all(p["ok"] for p in panels.values())
+    launches = dict(launches)
+    checks["launches"] = (launches["raster_fwd"] >= 1
+                          and launches["aa_fwd"] >= 1)
+    passed = all(checks.values())
+    emit({"phase": "vis", "passed": passed, "checks": checks, **out,
+          "panels": panels, "launches": launches,
+          "matplotlib_on_host": False, "output_dir": common.OUTPUT_DIR,
+          "tolerance": "main-path panels card vs CPU: images 1e-5 abs, "
+                       "masks exact; nefertiti ids vs dense: differing "
+                       "pixels at most 1 in 1e4 of the covered, each "
+                       f"within {EDGE_EPS_PX} px of the disputed face's "
+                       "edge",
+          "card": card})
+    return passed, launches
+
+
 def phase_bench(card):
     """``largesteps_torch.benchmarks.bench``'s functions as its ``main``
     runs them, the nefertiti line at 10 steps: their JSON lines, each
@@ -2123,6 +2396,7 @@ def main():
                       ("sharding", phase_sharding),
                       ("determinism", phase_determinism),
                       ("figures", phase_figures),
+                      ("vis", phase_vis),
                       ("bench", phase_bench)):
         if only and phase not in only:
             continue
@@ -2150,11 +2424,13 @@ def main():
     s_ok, s_launches = results["solvers"] or (False, {})
     sh_ok, sh_launches, sh_err = results["sharding"] or (False, {}, {})
     fg_ok, fg_launches = results["figures"] or (False, {})
+    v_ok, v_launches = results["vis"] or (False, {})
+    rd_ok, rd_launches = results["render"] or (False, {})
     b_ok, b_launches = results["bench"] or (False, {})
     # the kernels were held at the run's shapes: its cap is theirs
     fk_ok = fk_ok and all(row["cap"] == f_cap for row in f_table.values())
     failed = [p for p, ok in (("kernels", k_ok),
-                              ("render", results["render"]),
+                              ("render", rd_ok),
                               ("main_path", m_ok),
                               ("probe_kernels", p_ok),
                               ("dense_render", results["dense_render"]),
@@ -2168,6 +2444,7 @@ def main():
                               ("sharding", sh_ok),
                               ("determinism", results["determinism"]),
                               ("figures", fg_ok),
+                              ("vis", v_ok),
                               ("bench", b_ok)) if not ok]
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
@@ -2187,6 +2464,8 @@ def main():
                                     for leg, ranks in sh_launches.items()}
         row["sharding_max_abs_err"] = sh_err[k]
         row["figures_launches"] = fg_launches[k]
+        row["vis_launches"] = v_launches[k]
+        row["render_core_launches"] = rd_launches[k]
         row["bench_launches"] = b_launches[k]
     # the micro-benchmarks' kernels: their own launches, no large-F run;
     # ptxas's line of the instantiation that ran at each shape

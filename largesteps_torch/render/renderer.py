@@ -36,6 +36,8 @@ from .texture import texture_bilinear
 __all__ = ["Topology", "Renderer", "render_backgrounds", "batched_bytes",
            "BATCHED_SHARE"]
 
+_span = torch.profiler.record_function
+
 # the share of the device's memory that the batched prebinned pipe's
 # working set (batched_bytes) may take; past it the camera-sequential pipe
 # renders one camera at a time
@@ -262,21 +264,30 @@ class Renderer:
         return pipe(v_ndc, torch.ones_like(v), None, *extra)
 
     def _render_dense(self, v, n, topology: Topology):
-        """The dense path (``largesteps_tpu/render/renderer.py:240-253``)."""
+        """The dense path (``largesteps_tpu/render/renderer.py:240-253``).
+        Its forward stages are profiler ranges (``zbuffer``,
+        ``interpolate``, ``shade``, ``antialias``) that
+        :mod:`largesteps_torch.profiling` splits a step by."""
         faces, opp = topology.dense_tables(self.device)
         v_ndc = project(v, self.mvps)
-        rast = rasterize(v_ndc, faces, self.res, self.chunk)
+        with _span("zbuffer"):
+            rast = rasterize(v_ndc, faces, self.res, self.chunk)
         if self.shading:
-            light = interpolate(sh_eval(self.sh_M, n), rast, faces)
-            alpha = torch.ones_like(light[..., :1])
-            col = torch.cat([light / np.pi, alpha], dim=-1)
-            covered = rast[..., 3:4] != 0
-            composited = torch.where(covered, col, self.bgs)
-            return antialias(composited, rast, v_ndc, faces, opp, self.boost,
+            with _span("shade"):
+                irradiance = sh_eval(self.sh_M, n)
+            with _span("interpolate"):
+                light = interpolate(irradiance, rast, faces)
+            with _span("shade"):
+                alpha = torch.ones_like(light[..., :1])
+                col = torch.cat([light / np.pi, alpha], dim=-1)
+                covered = rast[..., 3:4] != 0
+                col = torch.where(covered, col, self.bgs)
+        else:
+            with _span("interpolate"):
+                col = interpolate(torch.ones_like(v), rast, faces)
+        with _span("antialias"):
+            return antialias(col, rast, v_ndc, faces, opp, self.boost,
                              cap=self.aa_cap)
-        col = interpolate(torch.ones_like(v), rast, faces)
-        return antialias(col, rast, v_ndc, faces, opp, self.boost,
-                         cap=self.aa_cap)
 
 
 class _SumGrads(torch.autograd.Function):

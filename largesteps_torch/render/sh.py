@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sh_matrices", "sh_eval"]
+__all__ = ["sh_matrices", "sh_eval", "SphericalHarmonics"]
 
 
 def sh_matrices(envmap) -> torch.Tensor:
@@ -68,3 +68,16 @@ def sh_eval(M: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     Mh = torch.einsum("cij,vj->cvi", M, h)        # (3, V, 4)
     l = torch.einsum("vi,cvi->vc", h, Mh)         # (V, 3)
     return l.reshape(*shape[:-1], 3)
+
+
+class SphericalHarmonics:
+    """The lighting of an environment map as one object (the JAX
+    package's wrapper of the reference's ``render.py:13-87`` surface):
+    ``M`` from :func:`sh_matrices`, :meth:`eval` the irradiance at normals
+    (..., 3) → (..., 3)."""
+
+    def __init__(self, envmap):
+        self.M = sh_matrices(envmap)
+
+    def eval(self, n: torch.Tensor) -> torch.Tensor:
+        return sh_eval(self.M.to(n.device), n)

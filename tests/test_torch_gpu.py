@@ -65,6 +65,9 @@ cotangents from a numpy seed.
   call.
 * The fixed-order sums: raster_bwd and aa_bwd launched twice on the same
   inputs, and two 5-step runs of the main path, the same bits.
+* ``vis.render_panel`` (tiles at 128², dense at 96²) with the wireframe
+  and a highlight, and ``render_core``'s forward and gradient, on the card
+  against the CPU.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
@@ -1155,3 +1158,57 @@ def test_gpu_main_path_repeats_to_the_bit():
     assert np.isfinite(runs[0]["losses"]).all()
     assert np.array_equal(runs[0]["losses"], runs[1]["losses"])
     assert np.array_equal(runs[0]["v_final"], runs[1]["v_final"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", [128, 96])         # tiles, dense
+def test_gpu_render_mesh_image(res):
+    """``vis.render_mesh_image`` on the card against the CPU, with the
+    wireframe and a highlight: images 1e-5, their masks exact."""
+    from largesteps_torch.ops.shapes import icosphere
+    from largesteps_torch.vis import render_panel
+    dev = _card()
+    v, f = icosphere(3)
+    hl = np.arange(0, len(f), 29)
+    (a, *m_card, _), (b, *m_cpu, _) = (
+        render_panel(v, f, res=res, wireframe=True, highlight_faces=hl,
+                     device=d) for d in (dev, "cpu"))
+    assert a.shape == (res, res, 3) and np.abs(a - b).max() <= 1e-5
+    for x, y in zip(m_card, m_cpu):
+        assert x.any() and np.array_equal(x, y)
+
+
+@pytest.mark.gpu
+def test_gpu_render_core_gradient():
+    """``render_core`` forward and backward on the card (raster_fwd,
+    raster_bwd) against the CPU's plain versions: ids exact, u, v and
+    colour 1e-5, the gradients of v_clip and of the attributes 1e-4 ×
+    max|g|."""
+    from largesteps_torch.render.tile_raster import make_render_core
+    dev = _card()
+    scene = make_scene(source=("icosphere", 3), target=("gourd", 2),
+                       n_views=2, res=128)
+    f = scene["mesh-source"]["faces"]
+    rng = np.random.default_rng(3)
+    attrs = rng.normal(size=(len(scene["mesh-source"]["vertices"]), 3))
+    wc = rng.normal(size=(2, 128, 128, 3)).astype(np.float32)
+    wu = rng.normal(size=(2, 128, 128, 2)).astype(np.float32)
+    core = make_render_core(f, face_adjacency(f), (128, 128), cap=512)
+    out = {}
+    for d in (dev, "cpu"):
+        mvps = Renderer(scene, device=d).mvps
+        vc = project(torch.as_tensor(scene["mesh-source"]["vertices"],
+                                     device=d), mvps).requires_grad_(True)
+        at = torch.as_tensor(attrs.astype(np.float32),
+                             device=d).requires_grad_(True)
+        rast, slot, col = core(vc, at)
+        ((torch.as_tensor(wc, device=d) * col).sum()
+         + (torch.as_tensor(wu, device=d) * rast[..., :2]).sum()).backward()
+        out[d] = [t.detach().cpu() for t in (rast, slot, col, vc.grad,
+                                             at.grad)]
+    (r1, s1, c1, gv1, ga1), (r0, s0, c0, gv0, ga0) = out[dev], out["cpu"]
+    assert torch.equal(r1[..., 3], r0[..., 3]) and torch.equal(s1, s0)
+    assert float((r1[..., :2] - r0[..., :2]).abs().max()) <= 1e-5
+    assert float((c1 - c0).abs().max()) <= 1e-5
+    for g1, g0 in ((gv1, gv0), (ga1, ga0)):
+        assert float((g1 - g0).abs().max()) <= 1e-4 * float(g0.abs().max())

@@ -285,6 +285,25 @@ def suite_rank(rank, world, runs=()):
     return out
 
 
+def layout_gather_rank(rank, world, n_cams, res, sp):
+    """This rank's block of the ``(world / sp, sp)`` mesh under the tile
+    layout with row shards (``shard_layout``: JAX's ``camera_sharding``
+    with cameras on dp and rows on sp), and whether ``gather_images`` of
+    that block of a known (C, H, W, 2) array gives the whole array back
+    (JAX's ``host_local_to_global``)."""
+    import types
+    from largesteps_torch.parallel.sharding import (gather_images,
+                                                    make_mesh, shard_layout)
+    mesh = make_mesh(sp=sp)
+    rs, cams, rows = shard_layout(n_cams, res, "tiles", mesh)
+    full = np.arange(n_cams * res[0] * res[1] * 2, dtype=np.float32) \
+        .reshape(n_cams, res[0], res[1], 2)
+    got = gather_images(torch.as_tensor(full[cams, rows]),
+                        types.SimpleNamespace(mesh=mesh, row_shards=rs))
+    return {"cams": (cams.start, cams.stop), "rows": (rows.start, rows.stop),
+            "row_shards": rs, "whole": bool(np.array_equal(got, full))}
+
+
 def parity_rank(rank, world, runs):
     """The port's side of ``tests/test_torch_sharding_jax.py`` in one
     launch: the driver runs of ``runs`` and the sharded matvec, CG and
