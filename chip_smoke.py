@@ -880,13 +880,15 @@ def probe_cases(kinds=("onehot_scatter", "traffic", "probe_tile")):
     m = main_path_inputs()
     if "traffic" in kinds:
         from largesteps_torch.render.pipeline import (_backward_kernels,
-                                                      face_ids, face_sums)
+                                                      chain_planes, face_ids,
+                                                      face_sums)
         pipe = SimpleNamespace(resolution=m["res"], shading=True, boost=3.0,
                                ablate="", row_shards=1, row0=0)
         cov = (m["fid"] > 0)[..., None]
-        table18, _ = _backward_kernels(pipe, m["rbb"], m["counts"],
-                                       m["slot"], m["fid"], m["z"],
-                                       m["comp"], cov, m["d_out"])
+        sums, _ = _backward_kernels(pipe, m["rbb"], m["counts"], m["slot"],
+                                    m["fid"], m["z"], m["comp"], cov,
+                                    m["d_out"])
+        table18 = chain_planes(*sums, pipe.boost, m["rbb"])
         F, bins = m["n_faces"], m["bins"]
         cases.append(("onehot_scatter", "main_path_traffic", {
             "ids": face_ids(bins, F).to(torch.int32).reshape(1, -1)

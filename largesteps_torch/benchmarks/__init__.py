@@ -18,8 +18,9 @@ The JAX package's other scripts are covered by these entry points:
 * ``profile_step.py``, ``profile_parts.py``, ``profile_fused.py``,
   ``prof_nefertiti.py``, ``prof_rebin.py``, ``probe_sustained.py``:
   ``python -m largesteps_torch.profiling [--large-f | --dense]`` (per-span
-  host and device time of the main, large-F and dense steps, rebins
-  included) and ``chip_smoke.py``'s ``large_f`` phase;
+  host, self and stream time of the main, large-F and dense steps, rebins
+  included, from the driver's own spans) and ``chip_smoke.py``'s
+  ``large_f`` phase;
 * ``ablate_pipe.py``: ``bench``'s ``render_fwdbwd_ms_ablate_*`` lines;
 * ``micro_fwd.py``, ``micro_bwd.py``: the kernel rows of ``chip_smoke.py``
   (each kernel's ms, device ms, plain ms and bound at the main path's and

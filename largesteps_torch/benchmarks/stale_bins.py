@@ -70,7 +70,7 @@ def measure(scene, p, dev, steps, max_checks):
         tr = theta["tr"].detach().clone()
         bins_used = st.bins
         _, v_last, disp, _ = run.step()
-        rebins.after(disp)
+        rebins.after(it, disp)
         d = float(disp)
         if d <= half or len(checks) >= max_checks:
             continue

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spans import setup_span
 from .blocksp import rcm_permutation
 from .sparse import CooMatvec, SparseCOO
 
@@ -48,7 +49,8 @@ class BandedSolver:
 
         st = M.structure
         n = st.shape[0]
-        perm, inv = rcm_permutation(st.rows, st.cols, n)
+        with setup_span("setup.rcm"):
+            perm, inv = rcm_permutation(st.rows, st.cols, n)
         r2 = inv[st.rows.astype(np.int64)]
         c2 = inv[st.cols.astype(np.int64)]
         bw = int(np.abs(r2 - c2).max()) if len(r2) else 0
@@ -76,7 +78,7 @@ class BandedSolver:
         pad = np.arange(n, nb * B)
         D.index_put_((idx(pad // B), idx(pad % B), idx(pad % B)),
                      torch.ones(len(pad), device=dev), accumulate=True)
-        with full_fp32():
+        with full_fp32(), setup_span("setup.factor"):
             self.invDp, self.L = _factorize(D, E)
         self.perm = idx(perm)
         self.inv_perm = idx(inv)

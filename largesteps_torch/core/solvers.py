@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..spans import setup_span, span
 from .banded import BandedSolver, BandedUnsuitable
 from .blocksp import permuted_coo, rcm_permutation
 from .sparse import CooMatvec, SparseCOO
@@ -138,7 +139,7 @@ class CholeskySolver:
         self.refine = int(refine)
         self.inv = self._big = self._A = None
         if self.n <= dense_limit:
-            with full_fp32():
+            with full_fp32(), setup_span("setup.factor"):
                 A = M.todense()
                 L = torch.linalg.cholesky(A)
                 self.inv = torch.cholesky_inverse(L)
@@ -190,7 +191,8 @@ class CholeskyHostSolver:
         st = M.structure
         self.n = st.shape[0]
         vals = M.vals.detach().cpu().numpy().astype(np.float64)
-        self._factor = factorize(self.n, st.rows, st.cols, vals)
+        with setup_span("setup.factor"):
+            self._factor = factorize(self.n, st.rows, st.cols, vals)
 
     def solve(self, b: torch.Tensor, x0=None) -> torch.Tensor:
         x = self._factor.solve(b.detach().cpu().numpy())
@@ -212,7 +214,8 @@ class BlockAmgSolver:
 
         st = M.structure
         n = st.shape[0]
-        perm, inv = rcm_permutation(st.rows, st.cols, n)
+        with setup_span("setup.rcm"):
+            perm, inv = rcm_permutation(st.rows, st.cols, n)
         self.n = n
         self.n_pad = ((n + block - 1) // block) * block
         self.perm = torch.as_tensor(perm, device=M.device)
@@ -242,8 +245,9 @@ class BlockAmgSolver:
 
 
 class _Solve(torch.autograd.Function):
-    """x = M⁻¹ b; the backward solves again with the same solver (M = Mᵀ).
-    No gradient reaches the matrix or the guesses."""
+    """x = M⁻¹ b; the backward solves again with the same solver (M = Mᵀ),
+    in the span ``adjoint_solve``.  No gradient reaches the matrix or the
+    guesses."""
 
     @staticmethod
     def forward(ctx, b, solver, guess_fwd, guess_bwd):
@@ -252,7 +256,8 @@ class _Solve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.solver.solve(g, ctx.guess_bwd), None, None, None
+        with span("adjoint_solve"):
+            return ctx.solver.solve(g, ctx.guess_bwd), None, None, None
 
 
 def solve(solver, b: torch.Tensor, guess_fwd=None, guess_bwd=None):

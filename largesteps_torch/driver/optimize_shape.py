@@ -53,6 +53,13 @@ order on the card (``ops/segment.py``, the tile kernels' sorted sums), so
 the ranks' replicated work gives them the same bits without a broadcast,
 and every rank returns the same result; with the tile rows in two shards
 and the cameras unsplit it is the unsharded run's, bit for bit.
+
+The step's layers, the pipe's setup and scatter, the adjoint solve and
+every host wait on the card are spans (:mod:`largesteps_torch.spans`),
+recorded while a ``torch.profiler`` runs or, with ``trace``, in every step;
+their records go out in ``prof["trace"]``.  The setup's spans always time
+its parts (``prof``'s ``ref_render_s``, ``topology_s``, ``host_bins_s``).
+Tracing changes no result.
 """
 from __future__ import annotations
 
@@ -67,6 +74,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import spans as _spans
 from .._device import resolve_device
 from ..core.geometry import compute_matrix, laplacian_uniform
 from ..core.optimize import Adam, AdamUniform
@@ -87,6 +95,7 @@ from ..render.camera import project
 from ..render.pipeline import (bin_triangles_device, bin_triangles_host,
                                suggest_cap)
 from ..render.renderer import Renderer, Topology
+from ..spans import Recorder, setup_span, span as _span
 from .checkpoint import load_checkpoint, save_checkpoint, state_from_numpy
 
 __all__ = ["optimize_shape", "default_params"]
@@ -131,17 +140,17 @@ def default_params():
         "checkpoint_path": None,
         "resume": None,         # checkpoint to resume from
         "nan_check_every": 25,  # steps between divergence checks (0 = off)
+        "trace": False,         # record every step's spans, events and
+                                # host waits into prof["trace"]
     }
 
 
-# the step's layers as named ranges for torch.profiler (largesteps_torch.
-# profiling reads them); a few microseconds a step when no profiler runs
-_span = torch.profiler.record_function
-
-
-def _sync(dev):
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _sync(dev, site):
+    """Wait for the card to drain (a host wait at ``site``)."""
+    with _span("host_wait", site):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    _spans.waited()
 
 
 def _mark(dev):
@@ -171,9 +180,11 @@ def _allocated(dev):
     return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
 
 
-def _wait(event):
-    if event is not None:
-        event.synchronize()
+def _wait(event, site):
+    """Wait for ``event`` (None: done already), a host wait at ``site``."""
+    with _span("host_wait", site):
+        if event is not None:
+            event.synchronize()
 
 
 @dataclass
@@ -346,7 +357,7 @@ def _rebin_due(st, p, since, disp_q) -> bool:
         return due
     while len(disp_q) > 1:
         disp, event = disp_q.popleft()
-        _wait(event)
+        _wait(event, "rebin_due")
         d = float(disp)
         st.max_window_disp = max(st.max_window_disp, d)
         due = due or d > 0.5 * float(p["rebin_margin"])
@@ -360,7 +371,7 @@ def _bins_overflowed(st) -> bool:
     to the host, which grows the cap."""
     if st.pending_occ is None:
         return False
-    _wait(st.pending_occ[1])
+    _wait(st.pending_occ[1], "overflow")
     occ = int(st.pending_occ[0])
     st.pending_occ = None
     if occ > st.bin_cap:
@@ -379,7 +390,10 @@ class _Rebins:
     events, is every rank's (one host reduction a step).  :meth:`after`
     queues the step's displacement as a host copy with an event, and keeps
     at most ``max_inflight`` steps queued.  ``prof`` gains ``rebin_s``,
-    ``rebin_n`` and ``rebin_steps``."""
+    ``rebin_n``, ``rebin_steps`` and ``rebin_routes``, the rebins by route:
+    ``device``, ``host_spans`` (the tile spans do not fit the device
+    binning) and ``host_overflow`` (the last device rebin overflowed its
+    cap)."""
 
     def __init__(self, st, p, renderer, theta, start_it, prof):
         self.st, self.p, self.renderer, self.theta = st, p, renderer, theta
@@ -388,8 +402,10 @@ class _Rebins:
         prof.setdefault("rebin_s", 0.0)
         prof.setdefault("rebin_n", 0)
         prof.setdefault("rebin_steps", [])
+        prof.setdefault("rebin_routes", {"device": 0, "host_spans": 0,
+                                         "host_overflow": 0})
         self.disp_q = deque()       # (host displacement, event) a step
-        self.inflight = deque()     # events of the queued steps
+        self.inflight = deque()     # (step, event) of the queued steps
 
     def before(self, it, v_last):
         st, p, theta = self.st, self.p, self.theta
@@ -411,78 +427,92 @@ class _Rebins:
             if on_device:
                 _rebin_device(st, p, self.renderer, v_last[st.dup_dev] + tr)
             else:
-                _rebin(st, p, self.renderer,
-                       (v_last.cpu()[st.dup_dev.cpu()] + tr.cpu()).numpy())
+                with _span("host_wait", "host_rebin"):
+                    v_host = (v_last.cpu()[st.dup_dev.cpu()]
+                              + tr.cpu()).numpy()
+                _spans.waited()
+                _rebin(st, p, self.renderer, v_host)
                 st.pending_occ = None
+        route = "device" if on_device else \
+            "host_overflow" if st.device_rebin_ok else "host_spans"
+        self.prof["rebin_routes"][route] += 1
         self.last_it = it
         self.disp_q.clear()
         self.prof["rebin_s"] += time.perf_counter() - t0
         self.prof["rebin_n"] += 1
         self.prof["rebin_steps"].append(it)
 
-    def after(self, disp):
+    def after(self, it, disp):
         if not self.st.use_host_bins:
             return
         disp = _to_host(disp)
         event = _mark(self.renderer.device)
         self.disp_q.append((disp, event))
-        self.inflight.append(event)
+        self.inflight.append((it, event))
         if len(self.inflight) > int(self.p["max_inflight"]):
-            _wait(self.inflight.popleft())
+            done, event = self.inflight.popleft()
+            _wait(event, "inflight")
+            _spans.waited(done)
 
 
 def _build_epoch(v_src, f_src, p, renderer, device, setup):
     """The epoch of (v_src, f_src); ``setup`` gains the seconds of its
-    topology (``topology_s``: duplicates, adjacency, Laplacian), its host
-    bins (``host_bins_s``) and its RCM and factor (``factor_s``)."""
-    t0 = time.perf_counter()
-    v_unique, f_unique, duplicate_idx = remove_duplicates(v_src, f_src)
-    st = _Epoch(v_unique=v_unique, f_unique=f_unique,
-                duplicate_idx=duplicate_idx,
-                f_src=np.asarray(f_src, np.int32), topology=Topology(f_src))
-    st.L = laplacian_uniform(len(v_unique), f_unique, device=device)
-    _sync(device)
-    setup["topology_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    st.use_host_bins = (renderer.backend == "tiles" and
-                        st.topology.n_faces >= int(p["host_bin_faces"]))
-    if st.use_host_bins:
-        margin, cull = p["rebin_margin"], p["cull_backfaces"]
-        st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
-            renderer, v_src, st.topology, margin, cap=p["host_bin_cap"],
-            cull=cull, return_spans=True)
-        if occ > st.bin_cap:          # the configured cap is too small
+    topology (``topology_s``, span ``setup.topology``: duplicates,
+    adjacency, Laplacian), its host bins (``host_bins_s``, ``setup.bins``)
+    and its matrix and solver (``factor_s``: ``setup.matrix``, then the
+    solver's ``setup.rcm`` and ``setup.factor``)."""
+    with setup_span("setup.topology") as sp:
+        v_unique, f_unique, duplicate_idx = remove_duplicates(v_src, f_src)
+        st = _Epoch(v_unique=v_unique, f_unique=f_unique,
+                    duplicate_idx=duplicate_idx,
+                    f_src=np.asarray(f_src, np.int32),
+                    topology=Topology(f_src))
+        st.L = laplacian_uniform(len(v_unique), f_unique, device=device)
+        _sync(device, "setup")
+    setup["topology_s"] = sp.seconds
+    with setup_span("setup.bins") as sp:
+        st.use_host_bins = (renderer.backend == "tiles" and
+                            st.topology.n_faces >= int(p["host_bin_faces"]))
+        if st.use_host_bins:
+            margin, cull = p["rebin_margin"], p["cull_backfaces"]
             st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
-                renderer, v_src, st.topology, margin, cull=cull,
-                return_spans=True)
-        st.occupancy = int(occ)
-        # mid-run rebins run on the device when the tile spans fit its
-        # static (2, 2) bound
-        st.device_rebin_ok = spans[0] <= 2 and spans[1] <= 2
-        st.dup_dev = torch.as_tensor(duplicate_idx.astype(np.int64),
-                                     device=device)
-        st.faces_dev = torch.as_tensor(st.topology.faces.astype(np.int64),
-                                       device=device)
-        with torch.no_grad():
-            st.sxy_dev = _sxy(renderer, project(torch.as_tensor(
-                v_src, device=device), renderer.mvps))
-    else:
-        # size the bins before the first render: an overflowing bin
-        # under-draws its tile with no signal (a no-op on the dense backend)
-        st.occupancy = renderer.check_overflow(v_src, st.topology)
-    _sync(device)
-    setup["host_bins_s"] = time.perf_counter() - t0
+                renderer, v_src, st.topology, margin,
+                cap=p["host_bin_cap"], cull=cull, return_spans=True)
+            if occ > st.bin_cap:      # the configured cap is too small
+                st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
+                    renderer, v_src, st.topology, margin, cull=cull,
+                    return_spans=True)
+            st.occupancy = int(occ)
+            # mid-run rebins run on the device when the tile spans fit its
+            # static (2, 2) bound
+            st.device_rebin_ok = spans[0] <= 2 and spans[1] <= 2
+            st.dup_dev = torch.as_tensor(duplicate_idx.astype(np.int64),
+                                         device=device)
+            st.faces_dev = torch.as_tensor(
+                st.topology.faces.astype(np.int64), device=device)
+            with torch.no_grad():
+                st.sxy_dev = _sxy(renderer, project(torch.as_tensor(
+                    v_src, device=device), renderer.mvps))
+        else:
+            # size the bins before the first render: an overflowing bin
+            # under-draws its tile with no signal (a no-op on the dense
+            # backend)
+            st.occupancy = renderer.check_overflow(v_src, st.topology)
+        _sync(device, "setup")
+    setup["host_bins_s"] = sp.seconds
     t0 = time.perf_counter()
     if p["smooth"]:
-        st.M = compute_matrix(v_unique, f_unique, lambda_=p["lambda"],
-                              alpha=p["alpha"], device=device)
-        st.u = to_differential(
-            st.M, torch.as_tensor(v_unique, dtype=torch.float32,
-                                  device=device))
+        with setup_span("setup.matrix"):
+            st.M = compute_matrix(v_unique, f_unique, lambda_=p["lambda"],
+                                  alpha=p["alpha"], device=device)
+            st.u = to_differential(
+                st.M, torch.as_tensor(v_unique, dtype=torch.float32,
+                                      device=device))
         st.solver = _make_solver(st.M, p, renderer.mesh)  # once an epoch
-    _sync(device)
+    _sync(device, "setup")
     setup["factor_s"] = time.perf_counter() - t0
     return st
+
 
 
 def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
@@ -640,11 +670,11 @@ def _remesh(st, theta, p, it):
     h = 0.5 * float(average_edge_length(torch.as_tensor(v_unique),
                                         st.f_unique))
     native_remesh._load()       # a first use builds the library: untimed
-    t0 = time.perf_counter()
-    v_new, f_new = native_remesh.remesh_botsch(
-        v_unique.astype(np.float64), st.f_unique.astype(np.int32), 5, h,
-        True)
-    event = {"it": it, "h": h, "remesh_s": time.perf_counter() - t0,
+    with setup_span("remesh") as sp:
+        v_new, f_new = native_remesh.remesh_botsch(
+            v_unique.astype(np.float64), st.f_unique.astype(np.int32), 5, h,
+            True)
+    event = {"it": it, "h": h, "remesh_s": sp.seconds,
              "verts_before": int(len(v_unique)),
              "faces_before": int(len(st.f_unique)),
              "verts_after": int(len(v_new)), "faces_after": int(len(f_new)),
@@ -698,18 +728,19 @@ def _prepare(scene, p, dev) -> _Run:
         if mesh is not None:
             shard_renderer(renderer, mesh)
         ref_topo = Topology(f_ref)
-        t0 = time.perf_counter()
-        if renderer.backend == "tiles" \
-                and ref_topo.n_faces >= int(p["host_bin_faces"]):
-            ref_bins = _host_bins(renderer, v_ref.cpu().numpy(), ref_topo,
-                                  0.0)[0]
-            ref_imgs = renderer.render(v_ref, n_ref, ref_topo, bins=ref_bins)
-            del ref_bins
-        else:
-            renderer.check_overflow(v_ref, ref_topo)
-            ref_imgs = renderer.render(v_ref, n_ref, ref_topo)
-        _sync(dev)
-        setup = {"ref_render_s": time.perf_counter() - t0}
+        with setup_span("setup.reference") as sp:
+            if renderer.backend == "tiles" \
+                    and ref_topo.n_faces >= int(p["host_bin_faces"]):
+                ref_bins = _host_bins(renderer, v_ref.cpu().numpy(),
+                                      ref_topo, 0.0)[0]
+                ref_imgs = renderer.render(v_ref, n_ref, ref_topo,
+                                           bins=ref_bins)
+                del ref_bins
+            else:
+                renderer.check_overflow(v_ref, ref_topo)
+                ref_imgs = renderer.render(v_ref, n_ref, ref_topo)
+            _sync(dev, "setup")
+        setup = {"ref_render_s": sp.seconds}
 
     st = _build_epoch(v_src, f_src, p, renderer, dev, setup)
     step_size = float(p["step_size"])
@@ -750,15 +781,28 @@ def optimize_shape(scene, params=None, device=None):
     ``params["sharding"]`` every rank of the process group calls this with
     the same arguments and gets the same result (``im_ref`` the whole
     reference images); ``prof["sharding"]`` holds the mesh and the rank's
-    layout."""
+    layout.  With ``params["trace"]``, or while a ``torch.profiler`` runs,
+    ``prof["trace"]`` holds the call's spans and host waits
+    (:meth:`largesteps_torch.spans.Recorder.export`)."""
     dev = resolve_device(device)
     p = default_params()
     if params:
         p.update(params)
+    rec = Recorder(dev, always=p["trace"])
+    with _spans.recording(rec):
+        result = _optimize(scene, p, dev, rec)
+    if rec.used:
+        result["prof"]["trace"] = rec.export()
+    return result
+
+
+def _optimize(scene, p, dev, rec):
+    """The body of :func:`optimize_shape`, with ``rec`` active."""
     t_setup0 = time.perf_counter()
     if isinstance(scene, (str, os.PathLike)):
         scene = load_scene(os.fspath(scene))
-    run = _prepare(scene, p, dev)
+    with setup_span("setup"):
+        run = _prepare(scene, p, dev)
     st, theta, optimizer, step = run.st, run.theta, run.optimizer, run.step
     renderer, ref_imgs = run.renderer, run.ref_imgs
     v_src, f_src, resume = run.v_src, run.f_src, run.resume
@@ -794,9 +838,11 @@ def optimize_shape(scene, params=None, device=None):
         pending = ([remesh_it] if remesh_it > 0 else []) + remesh_schedule
         save = save_checkpoint if mesh is None \
             else pdist.save_checkpoint_multihost
-        save(p["checkpoint_path"], theta=theta, optimizer=optimizer,
-             v_src=v_src, f_src=f_src, step=it, step_size=step_size,
-             remesh_schedule=pending)
+        with _span("host_wait", "checkpoint"):
+            save(p["checkpoint_path"], theta=theta, optimizer=optimizer,
+                 v_src=v_src, f_src=f_src, step=it, step_size=step_size,
+                 remesh_schedule=pending)
+        _spans.waited()
 
     it = start_it
     rebins = _Rebins(st, p, renderer, theta, start_it, prof)
@@ -814,32 +860,35 @@ def optimize_shape(scene, params=None, device=None):
         return not (over if mesh is None else pdist.host_max([over], mesh)[0])
 
     while going():
+        rec.step = it
         if p["checkpoint_every"] and p["checkpoint_path"] and it > start_it \
                 and it % p["checkpoint_every"] == 0:
             checkpoint(it)
         if it == remesh_it:
-            _sync(dev)          # every queued step of the old epoch has run
+            _sync(dev, "remesh")  # every queued step of the old epoch ran
             t_rm = time.perf_counter()
-            v_src, f_src, event = _remesh(st, theta, p, it)
-            tr = theta["tr"].detach().clone()
-            event["allocated_before"] = _allocated(dev)
-            # free the old epoch before building the new one: its bins,
-            # pipes (Topology), solver factor, the step's closure, the
-            # rebin queues and the optimizer's moments
-            st = theta = optimizer = step = rebins = v_last = None
-            gc.collect()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-            event["allocated_after"] = _allocated(dev)
-            setup = {}
-            st = _build_epoch(v_src, f_src, p, renderer, dev, setup)
-            result["f"].append(f_src.copy())
-            step_size *= 0.8
-            theta = _fresh_theta(st, p, dev, tr)
-            optimizer = _make_optimizer(p["optimizer"],
-                                        [theta["tr"], theta["u"]], step_size)
-            step = _make_step(st, p, renderer, ref_imgs, theta, optimizer)
-            rebins = _Rebins(st, p, renderer, theta, it, prof)
+            with setup_span("setup"):
+                v_src, f_src, event = _remesh(st, theta, p, it)
+                tr = theta["tr"].detach().clone()
+                event["allocated_before"] = _allocated(dev)
+                # free the old epoch before building the new one: its bins,
+                # pipes (Topology), solver factor, the step's closure, the
+                # rebin queues and the optimizer's moments
+                st = theta = optimizer = step = rebins = v_last = None
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+                event["allocated_after"] = _allocated(dev)
+                setup = {}
+                st = _build_epoch(v_src, f_src, p, renderer, dev, setup)
+                result["f"].append(f_src.copy())
+                step_size *= 0.8
+                theta = _fresh_theta(st, p, dev, tr)
+                optimizer = _make_optimizer(
+                    p["optimizer"], [theta["tr"], theta["u"]], step_size)
+                step = _make_step(st, p, renderer, ref_imgs, theta,
+                                  optimizer)
+                rebins = _Rebins(st, p, renderer, theta, it, prof)
             cap = st.bin_cap if st.use_host_bins else renderer.bin_cap
             event.update(
                 setup=setup, solver=_solver_info(st),
@@ -852,9 +901,9 @@ def optimize_shape(scene, params=None, device=None):
         rebins.before(it, v_last)
         t_st = time.perf_counter()
         losses, v_last, disp, iters = step()
-        rebins.after(disp)
+        rebins.after(it, disp)
         if it == start_it:
-            _sync(dev)
+            _sync(dev, "first_step")
             prof["first_step_s"] = time.perf_counter() - t_st
         loss_log.append(torch.stack(losses))
         if iters is not None:
@@ -862,21 +911,27 @@ def optimize_shape(scene, params=None, device=None):
         if p["nan_check_every"] and (it + 1) % int(p["nan_check_every"]) == 0:
             # both scalars: NaN vertices render as background, leaving the
             # image loss finite while the bilaplacian magnitude goes NaN
-            if not bool(torch.isfinite(loss_log[-1]).all()):
+            with _span("host_wait", "nan_check"):
+                finite = bool(torch.isfinite(loss_log[-1]).all())
+            _spans.waited()
+            if not finite:
                 warnings.warn(f"non-finite loss/reg at iteration {it}; "
                               f"aborting optimization (diverged)")
                 result["diverged"] = True
                 it += 1
                 break
         if p["record_verts"]:
-            result["vert_steps"].append(
-                v_last.cpu().numpy()[st.duplicate_idx])
-            result["tr_steps"].append(theta["tr"].detach().cpu().numpy())
+            with _span("host_wait", "record_verts"):
+                result["vert_steps"].append(
+                    v_last.cpu().numpy()[st.duplicate_idx])
+                result["tr_steps"].append(theta["tr"].detach().cpu().numpy())
+            _spans.waited()
         it += 1
         if steps < 0:
-            _sync(dev)       # a time budget counts executed seconds
+            _sync(dev, "time_budget")  # a budget counts executed seconds
         t = time.perf_counter()
-    _sync(dev)
+    rec.step = None
+    _sync(dev, "end")
     t = time.perf_counter()
 
     if p["checkpoint_every"] and p["checkpoint_path"]:

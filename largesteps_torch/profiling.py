@@ -1,7 +1,7 @@
 """Where a step spends its time on the card, and the timers and roofline.
 
-    python -m largesteps_torch.profiling [--steps 10] [--trace DIR]
-        [--large-f | --dense]
+    python -m largesteps_torch.profiling [--steps 10] [--warmup 5]
+        [--trace DIR] [--large-f | --dense]
 
 Port of ``largesteps_tpu/profiling.py`` (``trace``, ``time_fn``,
 ``Roofline``, ``roofline``, ``CHIP_SPECS``, with the H100's peaks in place
@@ -11,32 +11,26 @@ views at 256², shaded, boost 3, λ = 19, l2 loss, AdamUniform); with
 ``--large-f`` the large-F scene (the teaser's ``nefertiti`` ``ours`` leg:
 icosphere-7, 327,680 faces, fitted to gourd-7, 13 views at 256², boost 3,
 α = 0.98, l1 loss, AdamUniform at 2e-3, through host bins, the banded
-solver and the prebinned pipe); with ``--dense`` the main path's scene at
-13 views of 250², a size that does not tile, which the dense renderer draws
-(``chip_smoke.py``'s ``dense_path``).  It warms the step up, then runs
-``--steps`` steps under :func:`trace` and prints one JSON line:
+solver, the prebinned pipe and the driver's rebins); with ``--dense`` the
+main path's scene at 13 views of 250², a size that does not tile, which the
+dense renderer draws (``chip_smoke.py``'s ``dense_path``).  It runs one
+``optimize_shape`` call of ``--warmup`` + ``--steps`` steps with
+``"trace": True`` (:mod:`largesteps_torch.spans`), under ``torch.profiler``
+only with ``--trace DIR`` (which keeps the Chrome trace there), and prints
+one JSON line over the last ``--steps`` steps:
 
-* ``wall_ms_per_step``: host clock around the profiled steps, ending in
-  ``torch.cuda.synchronize()`` (the profiler's own overhead included);
-* ``device_ms_per_step`` and ``device_busy``: the summed duration of every
-  CUDA kernel and memory operation in the trace, per step and as a share
-  of the wall time;
-* ``spans``: per layer of the step (the ``record_function`` ranges of
-  ``driver/optimize_shape.py``: solve, normals, render, loss, backward,
-  optimizer, displacement, rebin; and inside ``render`` the dense
-  renderer's forward stages, ``Renderer._render_dense``: zbuffer,
-  interpolate, shade, antialias), its host ms and the device ms of the
-  kernels it launched (a kernel counts in the innermost range around its
-  launch, so ``render`` keeps only what its stages do not hold);
-* ``kernels``: the device ms per step of the heaviest kernels by name.
+* ``wall_ms_per_step``: host clock from the first counted step's start to
+  the call's final drain of the card;
+* ``spans``: per span name (the driver's step layers, ``pipe_setup``,
+  ``pipe_scatter``, ``adjoint_solve``, ``rebin``, ``host_wait``, and on the
+  dense path its forward stages), spans a step, host ms, self ms (host ms
+  no child span covers) and stream ms (device end minus device start, from
+  CUDA events) a step;
+* ``host_waits``: per site, waits and host ms a step;
+* ``setup``: the host seconds of the call's setup spans; ``rebins`` and
+  ``rebin_routes`` in the counted steps and over the call.
 
-The large-F steps run inside the driver's rebin policy, as
-``optimize_shape`` runs them: its rebins between steps (span ``rebin``,
-counted in ``rebins``, their device ms each in ``rebin_device_ms_each``)
-and its wait on the step ``max_inflight`` back are in the profiled
-window.  Numbers are read from the exported Chrome trace
-(``cat`` kernel, gpu_memcpy, gpu_memset, user_annotation,
-gpu_user_annotation), which ``--trace`` keeps.  Runs on the card only.
+Runs on the card only.
 """
 from __future__ import annotations
 
@@ -46,15 +40,15 @@ import json
 import os
 import tempfile
 import time
-from collections import defaultdict
 from dataclasses import dataclass
 
 import torch
 from torch.utils._pytree import tree_leaves
 
 from ._device import resolve_device
-from .driver.optimize_shape import _prepare, _Rebins, default_params
+from .driver.optimize_shape import optimize_shape
 from .io.synth import make_scene
+from .spans import summarize
 
 __all__ = ["trace", "time_fn", "Roofline", "roofline", "CHIP_SPECS",
            "main_path_scene", "MAIN_PATH_PARAMS", "large_f_scene",
@@ -154,10 +148,8 @@ MAIN_PATH_PARAMS = {"step_size": 0.03, "lambda": 19.0, "boost": 3,
 # setting at the driver's defaults
 LARGE_F_PARAMS = {"boost": 3, "alpha": 0.98, "loss": "l1", "smooth": True,
                   "step_size": 2e-3, "optimizer": "AdamUniform"}
-SPANS = ("solve", "normals", "render", "loss", "backward", "optimizer",
-         "displacement", "rebin", "zbuffer", "interpolate", "shade",
-         "antialias")
 DENSE_RES = 250         # does not tile into 32×128 pixels: the dense path
+# the Chrome trace's categories of the card's work (chip_smoke.py reads it)
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -175,103 +167,52 @@ def large_f_scene(n_views: int = 13, seed: int = 0):
                       n_views=n_views, res=256, seed=seed)
 
 
-def _summarize(trace: dict, steps: int, wall_s: float) -> dict:
-    events = [e for e in trace.get("traceEvents", [])
-              if e.get("ph") == "X" and "dur" in e]
-    dev = [e for e in events if e.get("cat") in _DEVICE_CATS]
-    by_name = defaultdict(float)
-    for e in dev:
-        by_name[e["name"]] += e["dur"]
-    ranges = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-                    if e.get("cat") == "user_annotation"
-                    and e["name"] in SPANS)
-    host_span = defaultdict(float)
-    for lo, hi, name in ranges:
-        host_span[name] += hi - lo
-    # device work belongs to the span whose host range holds its launch,
-    # on whichever thread (the backward launches from autograd's thread)
-    launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
-                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                 and "correlation" in e.get("args", {})}
-    dev_span = defaultdict(float)
-    for d in dev:
-        ts = launch_ts.get(d.get("args", {}).get("correlation"))
-        # the innermost range: the last to start of those around the launch
-        inside = [n for lo, hi, n in ranges
-                  if ts is not None and lo <= ts <= hi]
-        dev_span[inside[-1] if inside else "other"] += d["dur"]
-    per = 1e-3 / steps                              # µs total → ms a step
-    busy_ms = sum(by_name.values()) * per
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return {
-        "steps": steps,
-        "wall_ms_per_step": wall_s * 1e3 / steps,
-        "device_ms_per_step": busy_ms,
-        "device_busy": busy_ms / (wall_s * 1e3 / steps),
-        "device_events_per_step": len(dev) / steps,
-        "spans": {s: {"host_ms": host_span[s] * per,
-                      "device_ms": dev_span[s] * per}
-                  for s in (*SPANS, "other")},
-        "kernels": [{"name": n[:120], "ms_per_step": t * per}
-                    for n, t in top],
-    }
-
-
 def profile_main_path(steps: int = 10, warmup: int = 5, trace_dir=None,
                       device=None, large_f: bool = False,
                       dense: bool = False) -> dict:
-    """Profile ``steps`` steady steps of the main path, of the large-F path
-    with ``large_f`` or of the dense path with ``dense`` (see module
-    doc)."""
+    """Profile ``steps`` steps after ``warmup`` of the main path, of the
+    large-F path with ``large_f`` or of the dense path with ``dense`` (see
+    module doc)."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise RuntimeError("profiling measures the card; no CUDA device")
     if large_f and dense:
         raise ValueError("large_f or dense, not both")
-    p = default_params()
-    p.update(LARGE_F_PARAMS if large_f else MAIN_PATH_PARAMS)
     path_name = "large_f" if large_f else "dense" if dense else "main_path"
     scene = large_f_scene() if large_f else main_path_scene(
         res=DENSE_RES if dense else 256)
-    run = _prepare(scene, p, dev)
-    counts = {}
-    rebins = _Rebins(run.st, p, run.renderer, run.theta, 0, counts)
-    v_last = None
-
-    def loop(its):
-        nonlocal v_last
-        for it in its:
-            rebins.before(it, v_last)
-            _, v_last, disp, _ = run.step()
-            rebins.after(disp)
-
-    loop(range(warmup))
-    torch.cuda.synchronize()
-    n_warm = counts["rebin_n"]
-    with trace(trace_dir, path_name + "_trace") as path:
-        t0 = time.perf_counter()
-        loop(range(warmup, warmup + steps))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    with open(path) as fh:
-        summary = _summarize(json.load(fh), steps, wall)
-    summary["trace"] = path if trace_dir else None
-    summary["card"] = torch.cuda.get_device_name(dev)
-    summary["path"] = path_name
-    summary["backend"] = run.renderer.backend
-    summary["solver"] = run.st.solver.tier if run.st.solver else None
-    summary["bin_cap"] = run.st.bin_cap if run.st.use_host_bins \
-        else run.renderer.bin_cap
-    summary["rebins"] = counts["rebin_n"] - n_warm
-    summary["rebin_device_ms_each"] = (
-        summary["spans"]["rebin"]["device_ms"] * steps / summary["rebins"]
-        if summary["rebins"] else None)
-    return summary
+    params = {**(LARGE_F_PARAMS if large_f else MAIN_PATH_PARAMS),
+              "steps": warmup + steps, "trace": True}
+    with (trace(trace_dir, path_name + "_trace") if trace_dir
+          else contextlib.nullcontext()) as path:
+        result = optimize_shape(scene, params, device=dev)
+    prof = result["prof"]
+    rec = prof["trace"]
+    last = warmup + steps
+    t_first = min(s["host"][0] for s in rec["spans"] if s["step"] == warmup)
+    t_end = max(s["host"][1] for s in rec["spans"]
+                if s["name"] == "host_wait" and s["site"] == "end")
+    summary = summarize(rec, warmup, last)
+    return {
+        "card": torch.cuda.get_device_name(dev), "path": path_name,
+        "steps": steps, "warmup": warmup,
+        "wall_ms_per_step": (t_end - t_first) * 1e3 / steps,
+        "spans": summary["spans"], "host_waits": summary["host_waits"],
+        "setup": {s["name"]: s["host"][1] - s["host"][0]
+                  for s in rec["spans"] if s["step"] is None
+                  and s["name"].startswith("setup")},
+        "rebins": sum(1 for k in prof["rebin_steps"] if warmup <= k < last),
+        "rebin_routes": prof["rebin_routes"],
+        "backend": prof["backend"],
+        "solver": prof.get("solver", {}).get("tier"),
+        "bin_cap": prof["bin_cap"], "trace": path}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--warmup", type=int, default=5,
+                    help="steps run before the counted ones")
     ap.add_argument("--trace", default=None,
                     help="directory that keeps the Chrome trace")
     which = ap.add_mutually_exclusive_group()
@@ -281,7 +222,8 @@ def main(argv=None):
                        help=f"profile the dense path (13 views of "
                             f"{DENSE_RES}²) instead")
     args = ap.parse_args(argv)
-    print(json.dumps(profile_main_path(args.steps, trace_dir=args.trace,
+    print(json.dumps(profile_main_path(args.steps, args.warmup,
+                                       trace_dir=args.trace,
                                        large_f=args.large_f,
                                        dense=args.dense)), flush=True)
 

@@ -43,6 +43,7 @@ from . import kernels
 from .kernels import TILE_H, TILE_W, BIG
 from ..ops.segment import run_sums, segment_sum
 from ..parallel import distributed as pdist
+from ..spans import span as _span
 
 __all__ = ["triangle_setup", "bin_triangles", "setup_and_bin",
            "setup_from_bins", "bin_triangles_host", "bin_triangles_device",
@@ -793,9 +794,9 @@ def _forward_kernels(pipe, rfb, rbb, counts, bg):
 
 def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g,
                       hrow=None):
-    """aa_bwd, raster_bwd and the chain to clip space: (table18 (C, TY,
-    TX, cap, 18), d_comp (C, H, W, D)); ``hrow`` the forward's packed halo
-    rows of a row shard."""
+    """aa_bwd and raster_bwd: ([dslot, dslot_aa], the per-slot sums that
+    :func:`_chain_scatter` takes, d_comp (C, H, W, D)); ``hrow`` the
+    forward's packed halo rows of a row shard."""
     res = pipe.resolution
     g = g.contiguous()
     if pipe.ablate == "aabwd":
@@ -818,7 +819,18 @@ def _backward_kernels(pipe, rbb, counts, slot, fid, z, comp, cov, g,
         zeros = torch.zeros_like(fid)
         dslot = kernels.raster_bwd(rbb, counts, slot, d_color.contiguous(),
                                    zeros, zeros, res, pipe.row0)
-    return chain_planes(dslot, dslot_aa, pipe.boost, rbb), d_comp
+    return [dslot, dslot_aa], d_comp
+
+
+def _chain_scatter(pipe, sums, rbb, bins, fslots, incidence, n_verts):
+    """The per-slot sums chained to clip space and scattered to the
+    vertices (span ``pipe_scatter``): (dv_clip, d_attrs) of :func:`_scatter`.
+    ``sums`` is emptied once chained, so that its tables (some 1.8 GB at
+    nefertiti) are freed before the scatter runs."""
+    with _span("pipe_scatter"):
+        table18 = chain_planes(*sums, pipe.boost, rbb)
+        sums.clear()
+        return _scatter(pipe, table18, bins, fslots, incidence, n_verts)
 
 
 def _scatter(pipe, table18, bins, fslots, incidence, n_verts):
@@ -904,16 +916,17 @@ class _PipelineFn(torch.autograd.Function):
         height, width = pipe.resolution
         C = v_clip.shape[0]
         faces, opp, _ = pipe.device_tables(v_clip.device, v_clip.shape[1])
-        if pipe.prebinned:
-            bins, counts = pipe.local_bins(binned[0], binned[1])
-            rfb, rbb = setup_from_bins(v_clip, faces, attrs, opp, bins,
-                                       height, width)
-            rfb, rbb, bins = _tiled(pipe, C, rfb, rbb, bins)
-            counts = _counts3(pipe, counts)
-        else:
-            rfb, rbb, bins, counts = setup_and_bin(
-                v_clip, faces, attrs, opp, height, width, pipe.cap,
-                (pipe.row0, pipe.ty))
+        with _span("pipe_setup"):
+            if pipe.prebinned:
+                bins, counts = pipe.local_bins(binned[0], binned[1])
+                rfb, rbb = setup_from_bins(v_clip, faces, attrs, opp, bins,
+                                           height, width)
+                rfb, rbb, bins = _tiled(pipe, C, rfb, rbb, bins)
+                counts = _counts3(pipe, counts)
+            else:
+                rfb, rbb, bins, counts = setup_and_bin(
+                    v_clip, faces, attrs, opp, height, width, pipe.cap,
+                    (pipe.row0, pipe.ty))
         out, slot, fid, z, comp, cov, hrow = _forward_kernels(
             pipe, rfb, rbb, counts, bg)
         ctx.pipe = pipe
@@ -930,11 +943,11 @@ class _PipelineFn(torch.autograd.Function):
         pipe = ctx.pipe
         rbb, bins, counts, slot, fid, z, comp, cov, hrow, *fslots = \
             ctx.saved_tensors
-        table18, d_comp = _backward_kernels(pipe, rbb, counts, slot, fid, z,
-                                            comp, cov, g, hrow)
+        sums, d_comp = _backward_kernels(pipe, rbb, counts, slot, fid, z,
+                                         comp, cov, g, hrow)
         _, _, incidence = pipe.device_tables(rbb.device, ctx.n_verts)
-        dv_clip, d_attrs = _scatter(pipe, table18, bins, fslots, incidence,
-                                    ctx.n_verts)
+        dv_clip, d_attrs = _chain_scatter(pipe, sums, rbb, bins, fslots,
+                                          incidence, ctx.n_verts)
         d_bg = None
         if ctx.bg_shape is not None and ctx.needs_input_grad[3]:
             d_bg = _d_bg(d_comp, cov, ctx.bg_shape)
@@ -976,9 +989,10 @@ class _BigFn(torch.autograd.Function):
         bins, counts = pipe.local_bins(*binned[:2])
         per_cam = []
         for i in range(C):
-            rfb, rbb = setup_from_bins(v_clip[i:i + 1], faces, attrs, opp,
-                                       bins[i:i + 1], height, width)
-            rfb, rbb = _tiled(pipe, 1, rfb, rbb)
+            with _span("pipe_setup"):
+                rfb, rbb = setup_from_bins(v_clip[i:i + 1], faces, attrs,
+                                           opp, bins[i:i + 1], height, width)
+                rfb, rbb = _tiled(pipe, 1, rfb, rbb)
             bg_i = None if bg is None else _per_camera_bg(bg, i, C)
             per_cam.append(_forward_kernels(pipe, rfb, rbb,
                                             _counts3(pipe, counts[i:i + 1]),
@@ -1008,17 +1022,19 @@ class _BigFn(torch.autograd.Function):
         d_comp = torch.empty_like(comp)
         for i in range(C):
             one = slice(i, i + 1)
-            _, rbb = setup_from_bins(v_clip[one], faces, attrs, opp,
-                                     bins[one], height, width,
-                                     need_fwd=False)
-            rbb, = _tiled(pipe, 1, rbb)
-            table18, d_comp[one] = _backward_kernels(
+            with _span("pipe_setup"):
+                _, rbb = setup_from_bins(v_clip[one], faces, attrs, opp,
+                                         bins[one], height, width,
+                                         need_fwd=False)
+                rbb, = _tiled(pipe, 1, rbb)
+            sums, d_comp[one] = _backward_kernels(
                 pipe, rbb, _counts3(pipe, counts[one]), slot[one], fid[one],
                 z[one], comp[one], cov[one], g[one],
                 hrow[one] if pipe.row_shards > 1 else None)
             bins4, = _tiled(pipe, 1, bins[one])
-            dv1, da1 = _scatter(pipe, table18, bins4,
-                                [fs[one] for fs in fslots], incidence, V)
+            dv1, da1 = _chain_scatter(pipe, sums, rbb, bins4,
+                                      [fs[one] for fs in fslots], incidence,
+                                      V)
             dv_clip[i] = dv1[0]
             d_attrs += da1
         d_bg = None

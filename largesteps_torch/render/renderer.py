@@ -25,6 +25,7 @@ import torch
 
 from .._device import resolve_device
 from ..parallel import distributed as pdist
+from ..spans import span as _span
 from .antialias import antialias, face_adjacency
 from .camera import persp_proj, build_mvps, project
 from .pipeline import (RenderPipeline, RenderPipelineBig, check_bin_overflow,
@@ -35,8 +36,6 @@ from .texture import texture_bilinear
 
 __all__ = ["Topology", "Renderer", "render_backgrounds", "batched_bytes",
            "BATCHED_SHARE"]
-
-_span = torch.profiler.record_function
 
 # the share of the device's memory that the batched prebinned pipe's
 # working set (batched_bytes) may take; past it the camera-sequential pipe
@@ -265,8 +264,8 @@ class Renderer:
 
     def _render_dense(self, v, n, topology: Topology):
         """The dense path (``largesteps_tpu/render/renderer.py:240-253``).
-        Its forward stages are profiler ranges (``zbuffer``,
-        ``interpolate``, ``shade``, ``antialias``) that
+        Its forward stages are spans (``zbuffer``, ``interpolate``,
+        ``shade``, ``antialias``; :mod:`largesteps_torch.spans`) that
         :mod:`largesteps_torch.profiling` splits a step by."""
         faces, opp = topology.dense_tables(self.device)
         v_ndc = project(v, self.mvps)

@@ -68,6 +68,9 @@ cotangents from a numpy seed.
 * ``vis.render_panel`` (tiles at 128², dense at 96²) with the wireframe
   and a highlight, and ``render_core``'s forward and gradient, on the card
   against the CPU.
+* The span recorder under ``torch.profiler``: each step span's host start
+  within 100 µs of its range in the Chrome trace, and its stream interval
+  (CUDA events) around the device work launched inside it within 50 µs.
 
 Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
@@ -1212,3 +1215,66 @@ def test_gpu_render_core_gradient():
     assert float((c1 - c0).abs().max()) <= 1e-5
     for g1, g0 in ((gv1, gv0), (ga1, ga0)):
         assert float((g1 - g0).abs().max()) <= 1e-4 * float(g0.abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_spans_line_up_with_the_chrome_trace(tmp_path):
+    """The driver under ``profiling.trace()`` on the scene of
+    ``tests/test_torch_spans.py`` (icosphere-2, 2 views of 64×128, host
+    bins, a rebin every 2 steps): every step span's host start, moved by
+    the recorder's ``ts_offset_us``, lies within 100 µs of the ``ts`` of
+    the same-named range of the trace, and every span timed by events holds
+    on its stream interval, within 50 µs, the device work launched inside
+    that range (on its thread)."""
+    import json
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.profiling import _DEVICE_CATS, trace
+    dev = _card()
+    scene = make_scene(source=("icosphere", 2), target=("gourd", 2),
+                       n_views=2, res=128)
+    scene["res_y"], scene["res_x"] = 64, 128
+    with trace(str(tmp_path), "spans") as path:
+        res = optimize_shape(scene, {
+            "steps": 5, "step_size": 0.01, "lambda": 19.0, "boost": 3,
+            "host_bin_faces": 1, "rebin_every": 2, "max_inflight": 1,
+            "nan_check_every": 2}, device=dev)
+    rec = res["prof"]["trace"]
+    off = rec["ts_offset_us"]
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append(e)
+    device = {e["args"]["correlation"]: e for e in events
+              if e.get("cat") in _DEVICE_CATS
+              and "correlation" in e.get("args", {})}
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in device]
+    steps = [s for s in rec["spans"] if s["step"] is not None]
+    timed = 0
+    for s in steps:
+        t0 = s["host"][0] * 1e6 + off
+        r = min(ranges[s["name"]], key=lambda e: abs(e["ts"] - t0))
+        assert abs(r["ts"] - t0) <= 100.0, (s["name"], s["step"],
+                                            r["ts"] - t0)
+        if s["stream"] is None:
+            continue
+        d0, d1 = (x * 1e6 + off for x in s["stream"])
+        inside = [device[e["args"]["correlation"]] for e in launches
+                  if e["tid"] == r["tid"]
+                  and r["ts"] <= e["ts"] <= r["ts"] + r["dur"]]
+        for k in inside:
+            assert d0 <= k["ts"] + 50.0, (s["name"], k["name"], d0 - k["ts"])
+            assert k["ts"] + k["dur"] <= d1 + 50.0, (
+                s["name"], k["name"], k["ts"] + k["dur"] - d1)
+        timed += bool(inside)
+    names = {s["name"] for s in steps if s["stream"] is not None}
+    assert {"solve", "render", "pipe_setup", "backward", "adjoint_solve",
+            "pipe_scatter"} <= names
+    # the adjoint solve runs on autograd's thread, inside backward()
+    assert {s["parent"] for s in steps
+            if s["name"] == "adjoint_solve"} == {"backward"}
+    assert timed >= len(steps) // 2
