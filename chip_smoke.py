@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``largesteps_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes, holds a
+each against its plain PyTorch version at the main path's shapes (the
+banded tier's sweep kernel, which the main path does not reach, at
+nefertiti's factor), holds a
 2-view render on the card against the same render on the CPU (and the
 unfused ``render_core``, forward and backward, likewise), and runs the
 main path (the ``bench.py:bench_step`` scene: icosphere-4 fitted to gourd-4,
@@ -563,7 +565,92 @@ def phase_kernels(card, ptxas):
                         "ptxas": ran(ptxas[name], instance(
                             name, m["cap"], m["comp"].shape[-1]))})
     table["aa_bwd"]["ptxas_sums"] = ran(ptxas["aa_bwd"], "aa_bwd_sums")
-    return ok, table
+    sweep_ok, table["banded_sweep"] = check_banded_sweep(card, ptxas)
+    return ok and sweep_ok, table
+
+
+def check_banded_sweep(card, ptxas):
+    """Row 7: the banded tier's sweep kernel at nefertiti's matrix
+    (icosphere-7, α = 0.98: B = 768, nb = 214) with 3 columns, against its
+    plain mirror (the same bits), the plain loop of ``_solve_blocks``
+    (1e-5 × max|x|; its time is ``library_ms``) and the float64 residual
+    ‖Mx − b‖/‖b‖ (at most 2e-6); two launches kept for ``determinism``.
+    The bound counts L twice: at 505 MB it cannot stay in L2 from one
+    sweep to the other (``bound_ms_once`` reads every input once)."""
+    import scipy.sparse as sp
+    from largesteps_torch import _cuda
+    from largesteps_torch.core import banded
+    from largesteps_torch.core.geometry import compute_matrix
+    from largesteps_torch.core.solvers import full_fp32
+    from largesteps_torch.ops.shapes import icosphere
+    v, f = icosphere(7)
+    M = compute_matrix(v.astype(np.float32), f, alpha=0.98, device="cuda")
+    slv = banded.BandedSolver(M)
+    nb, B, n = slv.nb, slv.B, slv.n
+    b = torch.as_tensor(np.random.default_rng(SEED).normal(
+        size=(n, 3)).astype(np.float32), device="cuda")
+    k = b.shape[1]
+    kern = lambda: banded.banded_sweep(slv.invDp, slv.L, b, slv.perm)
+    bp = torch.zeros((nb * B, k), device="cuda")
+    bp[:n] = b[slv.perm]
+
+    def unpermute(xp):
+        out = torch.empty((n, k), device="cuda")
+        out[slv.perm] = xp.reshape(-1, k)[:n]
+        return out
+
+    def loop():
+        with full_fp32():
+            return banded._solve_blocks(slv.invDp, slv.L, bp.view(nb, B, k))
+
+    got, again = kern(), kern()
+    want = unpermute(loop())
+    mirror = unpermute(banded.banded_sweep_plain(slv.invDp, slv.L,
+                                                 bp.view(nb, B, k)))
+    torch.cuda.synchronize()
+    TWICE["banded_sweep"] = bool(torch.equal(got, again))
+    st = M.structure
+    A = sp.coo_matrix((M.vals.double().cpu().numpy(), (st.rows, st.cols)),
+                      shape=st.shape).tocsr()
+    xn, bn = got.double().cpu().numpy(), b.double().cpu().numpy()
+    residual = float(np.linalg.norm(A @ xn - bn) / np.linalg.norm(bn))
+    err, scale = max_abs(got, want), float(want.abs().max())
+    bit_equal = bool(torch.equal(got, mirror))
+    passed = (bit_equal and err <= 1e-5 * scale
+              and residual <= 2e-6
+              and max_abs(torch.zeros_like(got), want) > 1e-5 * scale)
+    ms = time_ms(kern, 50)
+    dev_ms = device_ms(kern, 20)
+    library_ms = time_ms(loop, 10)
+    sweep_bytes = (3 * nb * B * B + 2 * n * k) * F32 + n * 8
+    once_bytes = (2 * nb * B * B + 2 * n * k) * F32 + n * 8
+    ops = 3 * 2 * nb * B * B * k
+    t_bytes, t_ops = sweep_bytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    plan = _cuda.launch_shape("banded_sweep", B, k)
+    launch = dict(zip(("blocks", "threads", "strip", "strips", "stages",
+                       "smem_bytes", "blocks_per_sm"), plan[:7]))
+    row = {"name": "banded_sweep", "route": "cuda",
+           "source": "largesteps_torch/csrc/banded_sweep.cu",
+           "replaces": "none: largesteps_tpu/core/banded.py:101 "
+                       "(_solve_blocks, two lax.scan sweeps)",
+           "launches": None, "max_abs_err": err, "ms": ms,
+           "plain_ms": None, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_ms_once": once_bytes / PEAK_BYTES * 1e3,
+           "library_ms": library_ms, "device_ms": dev_ms,
+           "residual": residual, "mirror_bit_equal": bit_equal,
+           "shape": {"B": B, "nb": nb, "n": n, "k": k}, "launch": launch,
+           "ptxas": ran(ptxas["banded_sweep"], f"ILi{k}E")}
+    emit({"phase": "kernel", "name": "banded_sweep", "passed": passed,
+          **{key: row[key] for key in (
+              "max_abs_err", "ms", "device_ms", "library_ms", "bound_ms",
+              "bound_by", "bound_ms_once", "residual", "mirror_bit_equal",
+              "shape", "launch", "ptxas")},
+          "tolerance": "mirror bits; loop 1e-5 x max|x|; residual 2e-6",
+          "twice_bit_equal": TWICE["banded_sweep"], "card": card})
+    del slv, M
+    torch.cuda.empty_cache()
+    return passed, row
 
 
 def phase_large_f_kernels(card):
@@ -777,6 +864,7 @@ def phase_large_f_pipes(card):
 def phase_large_f(card):
     """The port's optimize_shape on the teaser's ``ours`` leg at nefertiti
     for STEPS steps, and one 3-column solve of its banded factor."""
+    from largesteps_torch.core import banded
     from largesteps_torch.core.geometry import compute_matrix
     from largesteps_torch.core.solvers import CholeskySolver
     from largesteps_torch.driver import optimize_shape
@@ -796,8 +884,11 @@ def phase_large_f(card):
     torch.cuda.reset_peak_memory_stats()
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
+    banded.LAUNCHES["banded_sweep"] = 0
     res = optimize_shape(scene, params, device="cuda")
     launches = dict(K.LAUNCHES)
+    # a forward and an adjoint solve a step
+    launches["banded_sweep"] = banded.LAUNCHES["banded_sweep"]
     peak = torch.cuda.max_memory_allocated()
     losses = res["losses"][:, 0]
     prof = res["prof"]
@@ -805,7 +896,8 @@ def phase_large_f(card):
     steady = (STEPS - 1) / (res["wall_time"] - first)
     passed = (bool(np.isfinite(res["losses"]).all())
               and losses[-1] < losses[0] and prof["rebin_n"] >= 1
-              and all(n >= STEPS for n in launches.values()))
+              and all(n >= STEPS for n in launches.values())
+              and launches["banded_sweep"] >= 2 * STEPS)
     emit({"phase": "large_f", "passed": passed, "steps": STEPS,
           "faces": int(scene["mesh-source"]["faces"].shape[0]),
           "verts": int(vs.shape[0]), "solver": prof.get("solver"),
@@ -2049,7 +2141,8 @@ def phase_determinism(card):
     """Every sum of a step on the card is added in a fixed order, so a run
     repeats itself to the bit: raster_bwd and aa_bwd launched twice on the
     same inputs, at the main path's shapes (phase ``kernels``) and at
-    nefertiti's cap (``large_f_kernels``), must give the same bits; so must
+    nefertiti's cap (``large_f_kernels``), and the banded sweep kernel at
+    nefertiti's factor (``kernels``), must give the same bits; so must
     two runs each of the main path (20 steps), the main path under
     ``"CG"`` (20), the dense path (20) and the teaser's ``ours`` leg at
     nefertiti (10 steps, rebins included), in every loss and in the final
@@ -2076,9 +2169,11 @@ def phase_determinism(card):
     kernels = {shape: TWICE.get(shape) for shape in ("main_path", "large_f")}
     passed = (all(p["bit_equal"] for p in pairs.values())
               and all(k is not None and k["raster_bwd"] and k["aa_bwd"]
-                      for k in kernels.values()))
+                      for k in kernels.values())
+              and TWICE.get("banded_sweep") is True)
     emit({"phase": "determinism", "passed": passed, "runs": pairs,
-          "kernels_twice": kernels, "card": card})
+          "kernels_twice": kernels,
+          "banded_sweep_twice": TWICE.get("banded_sweep"), "card": card})
     return passed
 
 
@@ -2451,6 +2546,10 @@ def main():
     if failed:
         print(f"chip_smoke: failed phases {failed}", file=sys.stderr)
         return 1
+    # row 7 runs on no path of the tile kernels: its launches are the
+    # large-F run's, a forward and an adjoint solve a step
+    sweep = table.pop("banded_sweep")
+    sweep["large_f_launches"] = f_launches.pop("banded_sweep")
     for k, row in table.items():
         row["launches"] = launches[k]
         big = f_table[k]
@@ -2474,7 +2573,8 @@ def main():
     for k, row in p_table.items():
         for r in (row, *row["other_shapes"]):
             r["ptxas"] = ran(ptxas[k], micro_instance(k, r["launch"]))
-    emit({"kernels": list(table.values()) + list(p_table.values())})
+    emit({"kernels": list(table.values()) + list(p_table.values())
+          + [sweep]})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

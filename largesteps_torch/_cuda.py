@@ -70,9 +70,14 @@ _SIGNATURES = {
     # onehot_scatter's plan at (entries, ch)
     "ls_probe_tile_grid": ([_I, _I, _P], None),
     "ls_onehot_scatter_plan": ([ctypes.c_longlong, _I, _P], None),
+    # the banded tier's solve (core/banded.py): (invD, L, b, perm, out,
+    # scratch, n, B, nb, k, stream); its plan {blocks, threads, strip
+    # width, strips, stages, shared bytes, blocks an SM holds} at (B, k)
+    "ls_banded_sweep": ([_P] * 6 + [_I] * 4 + [_P], _I),
+    "ls_banded_sweep_plan": ([_I, _I, _P], None),
 }
 _KERNELS = ("raster_fwd", "raster_bwd", "aa_fwd", "aa_bwd", "onehot_scatter",
-            "probe_tile")
+            "probe_tile", "banded_sweep")
 
 _lock = threading.Lock()
 _handles: dict = {}
@@ -200,13 +205,15 @@ def stream(device) -> int:
 
 
 _SHAPES = {"probe_tile": "ls_probe_tile_grid",
-           "onehot_scatter": "ls_onehot_scatter_plan"}
+           "onehot_scatter": "ls_onehot_scatter_plan",
+           "banded_sweep": "ls_banded_sweep_plan"}
 
 
 def launch_shape(name: str, *args) -> list:
     """The launch shape that kernel ``name``'s library reports for a call's
     ``args`` (``_SIGNATURES``: ``ls_probe_tile_grid``,
-    ``ls_onehot_scatter_plan``), as a list of ints."""
+    ``ls_onehot_scatter_plan``, ``ls_banded_sweep_plan``), as a list of
+    ints."""
     out = (ctypes.c_longlong * 8)()
     library(name, _SHAPES[name])(*args, out)
     return list(out)

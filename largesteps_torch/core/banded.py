@@ -12,12 +12,21 @@ B × B.  Block LDLᵀ factors it once per topology epoch::
              backward xᵢ = inv(D'ᵢ)·yᵢ − Lᵢ₊₁ᵀ·xᵢ₊₁
 
 The blocks are assembled on the device from the COO values with
-``index_put_``; the factor and each solve are Python loops over the nb
-blocks of (B, B) products, all in full float32 (TF32 off: the tier's
-~2e-6 relative residual needs it).  At 163,842 vertices B = 768 and
-nb = 214, and ``inv(D')`` and ``L`` take about 505 MB each.  With
-``refine=k`` a solve adds k passes of iterative refinement, each solving
-again for the residual ``b − M x`` (a COO matvec).
+``index_put_``; the factor is a Python loop over the nb blocks of (B, B)
+products, in full float32 (TF32 off: the tier's ~2e-6 relative residual
+needs it).  At 163,842 vertices B = 768 and nb = 214, and ``inv(D')`` and
+``L`` take about 505 MB each.  With ``refine=k`` a solve adds k passes of
+iterative refinement, each solving again for the residual ``b − M x`` (a
+COO matvec).
+
+A solve goes through :func:`banded_sweep`: on the card one launch of the
+hand-written kernel ``csrc/banded_sweep.cu`` (both sweeps, the gather of
+``b`` through the RCM order and the scatter of ``x`` back; each launch adds
+one to ``LAUNCHES["banded_sweep"]``), on the CPU the plain loop
+``_solve_blocks``.  The kernel computes the backward sweep as ``zᵢ =
+inv(D'ᵢ)·yᵢ`` for every block first, then ``xᵢ = zᵢ − Lᵢ₊₁ᵀ·xᵢ₊₁``, each
+dot in a fixed order that :func:`banded_sweep_plain` repeats operation for
+operation.
 """
 from __future__ import annotations
 
@@ -28,7 +37,11 @@ from ..spans import setup_span
 from .blocksp import rcm_permutation
 from .sparse import CooMatvec, SparseCOO
 
-__all__ = ["BandedSolver", "BandedUnsuitable"]
+__all__ = ["BandedSolver", "BandedUnsuitable", "banded_sweep",
+           "banded_sweep_plain", "LAUNCHES"]
+
+LAUNCHES = {"banded_sweep": 0}
+MAX_K = 4          # right-hand columns the kernel takes
 
 
 class BandedUnsuitable(Exception):
@@ -81,18 +94,10 @@ class BandedSolver:
         with full_fp32(), setup_span("setup.factor"):
             self.invDp, self.L = _factorize(D, E)
         self.perm = idx(perm)
-        self.inv_perm = idx(inv)
 
     def _solve_once(self, b: torch.Tensor) -> torch.Tensor:
-        from .solvers import full_fp32
-
-        k = b.shape[1]
-        bp = torch.zeros((self.nb * self.B, k), dtype=torch.float32,
-                         device=b.device)
-        bp[:self.n] = b[self.perm]
-        with full_fp32():
-            x = _solve_blocks(self.invDp, self.L, bp.view(self.nb, self.B, k))
-        return x.view(-1, k)[:self.n][self.inv_perm]
+        return banded_sweep(self.invDp, self.L,
+                            b.to(torch.float32).contiguous(), self.perm)
 
     def solve(self, b: torch.Tensor, x0=None) -> torch.Tensor:
         """``M⁻¹ b`` for b of shape (n, k) or (n,); ``x0`` is ignored
@@ -139,4 +144,106 @@ def _solve_blocks(invDp, L, bb):
     for i in range(nb - 1, -1, -1):
         torch.addmm(carry, invDp[i], y[i], beta=-1.0, out=x[i])
         carry = L[i].mT @ x[i]
+    return x
+
+
+def _check_sweep(invDp, L, b, perm):
+    """Raise unless the arguments are what the kernel takes: (nb, B, B)
+    contiguous float32 factors with B a multiple of 128 up to 2048, b (n, k)
+    contiguous float32 with n ≤ nb·B and k from 1 to ``MAX_K``, perm (n,)
+    contiguous int64, all on one device, the factors on 16 bytes."""
+    if L.ndim != 3 or L.shape[1] != L.shape[2] or invDp.shape != L.shape:
+        raise ValueError(f"banded_sweep: factors of shapes "
+                         f"{tuple(invDp.shape)} and {tuple(L.shape)}, want "
+                         f"two (nb, B, B)")
+    nb, B, _ = L.shape
+    if B % 128 or not 128 <= B <= 2048 or nb < 1:
+        raise ValueError(f"banded_sweep: block {B} is not a multiple of 128 "
+                         f"in 128..2048 (nb {nb})")
+    if b.ndim != 2 or not 1 <= b.shape[1] <= MAX_K:
+        raise ValueError(f"banded_sweep: b of shape {tuple(b.shape)}, want "
+                         f"(n, k) with k in 1..{MAX_K}")
+    n = b.shape[0]
+    if not 1 <= n <= nb * B or perm.shape != (n,):
+        raise ValueError(f"banded_sweep: {n} rows and perm of shape "
+                         f"{tuple(perm.shape)} for {nb} blocks of {B}")
+    for name, t, dtype in (("invDp", invDp, torch.float32),
+                           ("L", L, torch.float32), ("b", b, torch.float32),
+                           ("perm", perm, torch.int64)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"banded_sweep: {name} must be a contiguous "
+                             f"{dtype} tensor, got {t.dtype}"
+                             f"{'' if t.is_contiguous() else ' (strided)'}")
+        if t.device != b.device:
+            raise ValueError(f"banded_sweep: {name} on {t.device}, b on "
+                             f"{b.device}")
+    if invDp.data_ptr() % 16 or L.data_ptr() % 16:
+        raise ValueError("banded_sweep: factors must be 16-byte aligned")
+
+
+def banded_sweep(invDp, L, b, perm):
+    """``x`` (n, k) with ``x[perm[p]] = (M'⁻¹ b')[p]``, where ``b'[p] =
+    b[perm[p]]`` zero-padded to nb·B rows and ``M'`` is the permuted system
+    whose block factor is (``invDp``, ``L``).  A CUDA tensor goes to the
+    kernel (one launch, counted in ``LAUNCHES``), which raises if it cannot
+    build or launch; a CPU tensor to the plain loop ``_solve_blocks``."""
+    _check_sweep(invDp, L, b, perm)
+    nb, B, _ = L.shape
+    n, k = b.shape
+    if not b.is_cuda:
+        from .solvers import full_fp32
+        bp = torch.zeros((nb * B, k), dtype=torch.float32, device=b.device)
+        bp[:n] = b[perm]
+        with full_fp32():
+            x = _solve_blocks(invDp, L, bp.view(nb, B, k)).view(-1, k)[:n]
+        out = torch.empty_like(x)
+        out[perm] = x
+        return out
+    from .. import _cuda
+    out = torch.empty((n, k), dtype=torch.float32, device=b.device)
+    # y, then z and x: a float and its tag a word (the launcher zeroes it)
+    scratch = torch.empty(2 * nb * B * k, dtype=torch.int64, device=b.device)
+    err = _cuda.library("banded_sweep")(
+        invDp.data_ptr(), L.data_ptr(), b.data_ptr(), perm.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), n, B, nb, k,
+        _cuda.stream(b.device))
+    _cuda.check("banded_sweep", err)
+    LAUNCHES["banded_sweep"] += 1
+    return out
+
+
+def _lane_dot(A, v):
+    """``A @ v`` for A (..., R, B) and v (..., B, k) in the kernel's order:
+    lane l of a warp adds the terms 32·t + l over each quarter of t, a
+    butterfly adds the 32 lanes, and the quarters are added in order."""
+    B = A.shape[-1]
+    T = B // 32
+    a = A.unflatten(-1, (T, 32)).unsqueeze(-1)          # (..., R, T, 32, 1)
+    w = v.unflatten(-2, (T, 32)).unsqueeze(-4)          # (..., 1, T, 32, k)
+    parts = []
+    for h in range(4):
+        s = torch.zeros(torch.broadcast_shapes(a[..., 0, :, :].shape,
+                                               w[..., 0, :, :].shape),
+                        dtype=A.dtype, device=A.device)
+        for t in range(h * T // 4, (h + 1) * T // 4):
+            s = s + a[..., t, :, :] * w[..., t, :, :]
+        for width in (16, 8, 4, 2, 1):
+            s = s[..., :width, :] + s[..., width:2 * width, :]
+        parts.append(s[..., 0, :])
+    return ((parts[0] + parts[1]) + parts[2]) + parts[3]
+
+
+def banded_sweep_plain(invDp, L, bb):
+    """The kernel's arithmetic on stacked (nb, B, k) right-hand sides in
+    the permuted order, operation for operation: the forward sweep, every
+    ``zᵢ = inv(D'ᵢ)·yᵢ``, then ``xᵢ = zᵢ − Lᵢ₊₁ᵀ·xᵢ₊₁``.  ``L₀`` is not
+    read (the factor's is 0).  The tests and ``chip_smoke.py`` hold the
+    kernel to it."""
+    nb = bb.shape[0]
+    y = bb.clone()
+    for i in range(1, nb):
+        y[i] = bb[i] - _lane_dot(L[i], y[i - 1])
+    x = _lane_dot(invDp, y)
+    for i in range(nb - 2, -1, -1):
+        x[i] = x[i] - _lane_dot(L[i + 1].mT, x[i + 1])
     return x

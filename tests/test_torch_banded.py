@@ -6,6 +6,12 @@ the JAX tier's relative to its largest entry, and its residual against the
 matrix in float64 within 1e-5 relative, as the JAX tier is held
 (``tests/test_solvers.py``); the gradient through ``solve`` within 1e-5 of
 the JAX one, likewise.
+
+The sweep kernel's plain mirror (``banded_sweep_plain``: the z-first
+backward sweep, each dot in the kernel's fixed order) within 1e-5 of the
+plain loop and of JAX's sweeps; on the CPU the solve takes the plain loop
+(no launch counted), and the wrapper refuses what the kernel does not take
+on every device.  The card's half is in ``tests/test_torch_gpu.py``.
 """
 import numpy as np
 import jax
@@ -16,19 +22,23 @@ import scipy.sparse.linalg as spl
 import torch
 
 from largesteps_tpu.core.banded import (BandedSolver as JBanded,
-                                        BandedUnsuitable as JUnsuitable)
+                                        BandedUnsuitable as JUnsuitable,
+                                        _solve_blocks as j_solve_blocks)
 from largesteps_tpu.core.blocksp import rcm_permutation as j_rcm
 from largesteps_tpu.core.geometry import compute_matrix as j_compute_matrix
 from largesteps_tpu.core.solvers import (CholeskySolver as JCholesky,
                                          solve as j_solve)
 from largesteps_tpu.ops import icosphere
 
-from largesteps_torch.core.banded import BandedSolver, BandedUnsuitable
+from largesteps_torch.core.banded import (LAUNCHES, BandedSolver,
+                                          BandedUnsuitable, _solve_blocks,
+                                          banded_sweep, banded_sweep_plain)
 from largesteps_torch.core.blocksp import rcm_permutation
 from largesteps_torch.core.geometry import compute_matrix
 from largesteps_torch.core import solvers
 from largesteps_torch.core.solvers import (BlockAmgSolver, CholeskySolver,
                                            solve)
+from test_torch_gpu import _sweep_bad_args, _sweep_loop, _sweep_system
 
 T = lambda a: torch.as_tensor(np.array(a))
 N = lambda a: np.asarray(a.detach() if isinstance(a, torch.Tensor) else a)
@@ -114,3 +124,38 @@ def test_banded_rejects_pathological_bandwidth(monkeypatch):
     slv = CholeskySolver(Mt)
     assert slv.tier == "blockamg"
     assert len(built) == 1 and built[0][0] is Mt and built[0][1] == 1e-6
+
+
+@pytest.mark.parametrize("B,nb,k", [(128, 1, 1), (128, 5, 3), (256, 3, 4),
+                                    (768, 2, 3)])
+def test_banded_sweep_plain_matches_loop_and_jax(B, nb, k):
+    """The kernel's mirror on a random SPD block-tridiagonal factor: within
+    1e-5 × max|x| of the plain loop and of the JAX package's sweeps."""
+    invDp, L, perm, b = _sweep_system(B, nb, k, nb * B, B + nb + k, "cpu")
+    want, bp = _sweep_loop(invDp, L, b, perm)
+    got = banded_sweep_plain(invDp, L, bp)
+    loop = _solve_blocks(invDp, L, bp)
+    jax_x = np.asarray(j_solve_blocks(N(invDp), N(L), N(bp)))
+    assert _rel(N(got), N(loop)) < 1e-5
+    assert _rel(N(got), jax_x) < 1e-5
+
+
+def test_banded_sweep_cpu_takes_the_plain_loop(system):
+    """A CPU tensor goes through ``_solve_blocks`` (the same bits as the
+    loop through the permutation) and launches nothing."""
+    _, Mt, b = system
+    slv = BandedSolver(Mt)
+    before = LAUNCHES["banded_sweep"]
+    x = slv.solve(T(b))
+    want, _ = _sweep_loop(slv.invDp, slv.L, T(b), slv.perm)
+    assert torch.equal(x, want)
+    assert LAUNCHES["banded_sweep"] == before
+
+
+@pytest.mark.parametrize("bad", ["block_64", "block_2176", "block_200",
+                                 "k_5", "rows", "float64", "strided",
+                                 "perm_int32", "unaligned"])
+def test_banded_sweep_rejects(bad):
+    """What the kernel does not take raises on the CPU too."""
+    with pytest.raises(ValueError):
+        banded_sweep(*_sweep_bad_args(bad, "cpu"))

@@ -36,6 +36,12 @@ cotangents from a numpy seed.
   solve on the card against a float64 CPU solve; the batched and the
   camera-sequential prebinned pipes on the card against the same pipes on
   the CPU.
+* The banded tier's sweep kernel (``core/banded.py:banded_sweep``) at
+  blocks of 128, 768 and 2,048 rows, 1, 2 and 5 blocks, 1 and 3 columns,
+  and at nefertiti's matrix (768 × 214): the bits of its plain mirror, the
+  plain loop within 1e-5, the float64 residual at most 2e-6, two launches
+  the same bits, the launches counted, arguments it does not take
+  refused.
 * The micro-benchmarks' kernels: ``onehot_scatter`` with P not a multiple
   of 4,096, ids out of range (−1, n_faces, far past it) and 18 and 32
   channels; at 1, 3, 18, 32 and 33 channels (scalar, v2 and v4
@@ -498,6 +504,171 @@ def test_gpu_banded_solve():
                       shape=st.shape).tocsc()
     x64 = spl.spsolve(A, b.astype(np.float64))
     assert np.abs(x - x64).max() / np.abs(x64).max() < 1e-5
+
+
+def _sweep_system(B, nb, k, n, seed, dev):
+    """A random SPD block-tridiagonal system of nb blocks of B on the card,
+    factored by the banded tier's ``_factorize``; a permutation of n rows
+    and a right-hand side (n, k) from a numpy seed."""
+    from largesteps_torch.core.banded import _factorize
+    from largesteps_torch.core.solvers import full_fp32
+    rng = np.random.default_rng(seed)
+    up = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)
+    A = up(rng.normal(size=(nb, B, B))) * (0.5 / np.sqrt(B))
+    D = A @ A.mT + torch.eye(B, device=dev)
+    E = up(rng.normal(size=(nb, B, B))) * (0.1 / np.sqrt(B))
+    E[0] = 0.0
+    with full_fp32():
+        invDp, L = _factorize(D, E)
+    perm = torch.as_tensor(rng.permutation(n), device=dev)
+    return invDp, L, perm, up(rng.normal(size=(n, k)))
+
+
+def _sweep_loop(invDp, L, b, perm):
+    """The plain loop (``_solve_blocks``) on the card, through perm."""
+    from largesteps_torch.core.banded import _solve_blocks
+    from largesteps_torch.core.solvers import full_fp32
+    nb, B, _ = L.shape
+    n, k = b.shape
+    bp = torch.zeros((nb * B, k), device=b.device)
+    bp[:n] = b[perm]
+    with full_fp32():
+        x = _solve_blocks(invDp, L, bp.view(nb, B, k)).view(-1, k)[:n]
+    out = torch.empty_like(x)
+    out[perm] = x
+    return out, bp.view(nb, B, k)
+
+
+def _unpermute(xp, perm):
+    n = perm.shape[0]
+    out = torch.empty((n, xp.shape[-1]), device=xp.device)
+    out[perm] = xp.reshape(-1, xp.shape[-1])[:n]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("nb", [1, 2, 5])
+@pytest.mark.parametrize("B", [128, 768, 2048])
+def test_gpu_banded_sweep(B, nb, k):
+    """The sweep kernel on a random SPD block-tridiagonal factor (rows past
+    n padded): the same bits as its plain mirror ``banded_sweep_plain``,
+    within 1e-5 × max|x| of the plain loop, and two launches the same
+    bits."""
+    from largesteps_torch.core.banded import (LAUNCHES, banded_sweep,
+                                              banded_sweep_plain)
+    dev = _card()
+    n = nb * B - (0 if nb == 1 else 37)
+    invDp, L, perm, b = _sweep_system(B, nb, k, n, 16 * B + nb + k, dev)
+    before = LAUNCHES["banded_sweep"]
+    x = banded_sweep(invDp, L, b, perm)
+    x2 = banded_sweep(invDp, L, b, perm)
+    assert LAUNCHES["banded_sweep"] == before + 2
+    want, bp = _sweep_loop(invDp, L, b, perm)
+    mirror = _unpermute(banded_sweep_plain(invDp, L, bp), perm)
+    torch.cuda.synchronize()
+    assert torch.equal(x, x2)
+    assert torch.equal(x, mirror)
+    assert float((x - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_gpu_banded_sweep_nefertiti():
+    """nefertiti's matrix (icosphere-7, α = 0.98: B = 768, nb = 214) through
+    the banded tier on the card, one and three columns: one launch a solve,
+    two with the adjoint; the relative residual ‖Mx − b‖/‖b‖ in float64 at
+    most 2e-6; within 1e-5 × max|x| of the plain loop; no farther from
+    scipy's float64 solve than twice the plain loop is (about 2e-5 of
+    max|x| at this α: the float32 factor's own error); the mirror's bits;
+    two launches the same bits."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spl
+    from largesteps_torch.core.banded import (LAUNCHES, BandedSolver,
+                                              banded_sweep_plain)
+    from largesteps_torch.core.geometry import compute_matrix
+    from largesteps_torch.core.solvers import solve
+    from largesteps_torch.ops.shapes import icosphere
+    dev = _card()
+    v, f = icosphere(7)
+    M = compute_matrix(v.astype(np.float32), f, alpha=0.98, device=dev)
+    slv = BandedSolver(M)
+    assert (slv.B, slv.nb) == (768, 214)
+    st = M.structure
+    A = sp.coo_matrix((M.vals.double().cpu().numpy(), (st.rows, st.cols)),
+                      shape=st.shape).tocsc()
+    rng = np.random.default_rng(7)
+    for k in (1, 3):
+        b = torch.as_tensor(rng.normal(size=(len(v), k)).astype(np.float32),
+                            device=dev)
+        before = LAUNCHES["banded_sweep"]
+        x, x2 = slv.solve(b), slv.solve(b)
+        assert LAUNCHES["banded_sweep"] == before + 2
+        want, bp = _sweep_loop(slv.invDp, slv.L, b, slv.perm)
+        mirror = _unpermute(banded_sweep_plain(slv.invDp, slv.L, bp),
+                            slv.perm)
+        torch.cuda.synchronize()
+        assert torch.equal(x, x2) and torch.equal(x, mirror)
+        assert float((x - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+        xn, bn = x.double().cpu().numpy(), b.double().cpu().numpy()
+        assert np.linalg.norm(A @ xn - bn) <= 2e-6 * np.linalg.norm(bn)
+        x64 = spl.spsolve(A, bn).reshape(bn.shape)
+        loop_err = np.abs(want.double().cpu().numpy() - x64).max()
+        assert np.abs(xn - x64).max() <= 2 * loop_err
+    u = b.clone().requires_grad_(True)
+    before = LAUNCHES["banded_sweep"]
+    solve(slv, u).square().sum().backward()
+    assert LAUNCHES["banded_sweep"] == before + 2
+    assert torch.isfinite(u.grad).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["block_64", "block_2176", "block_200",
+                                 "k_5", "rows", "float64", "strided",
+                                 "perm_int32", "unaligned"])
+def test_gpu_banded_sweep_rejects(bad):
+    """The wrapper raises on what the kernel does not take, and the
+    launcher refuses a block out of range by itself."""
+    from largesteps_torch import _cuda
+    from largesteps_torch.core.banded import LAUNCHES, banded_sweep
+    dev = _card()
+    args = _sweep_bad_args(bad, dev)
+    before = LAUNCHES["banded_sweep"]
+    with pytest.raises(ValueError):
+        banded_sweep(*args)
+    assert LAUNCHES["banded_sweep"] == before
+    assert _cuda.launch_shape("banded_sweep", 2176, 3)[0] == 0
+    assert _cuda.launch_shape("banded_sweep", 768, 5)[0] == 0
+    invDp, L, b, perm = _sweep_bad_args("block_2176", dev)
+    scratch = torch.empty(2 * L.shape[0] * 2176 * 3, dtype=torch.int64,
+                          device=dev)
+    out = torch.empty_like(b)
+    assert _cuda.library("banded_sweep")(
+        invDp.data_ptr(), L.data_ptr(), b.data_ptr(), perm.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), b.shape[0], 2176, 1, 3,
+        _cuda.stream(dev)) != 0
+
+
+def _sweep_bad_args(bad, dev):
+    """Arguments of ``banded_sweep`` on ``dev`` with one thing the kernel
+    does not take: a block of 64, 2,176 or 200 rows, 5 right-hand columns,
+    more rows than the blocks hold, float64, a strided b, an int32 perm, a
+    factor that does not start on 16 bytes."""
+    nb, k = 2, 3
+    B = {"block_64": 64, "block_2176": 2176, "block_200": 200}.get(bad, 128)
+    n = nb * B + 1 if bad == "rows" else 200
+    invDp = torch.zeros((nb, B, B), device=dev)
+    L = torch.zeros(nb * B * B + 1, device=dev)
+    L = L[1:] if bad == "unaligned" else L[:-1]
+    b = torch.zeros((n, 5 if bad == "k_5" else k), device=dev)
+    if bad == "float64":
+        b = b.double()
+    if bad == "strided":
+        b = torch.zeros((k, n), device=dev).mT
+    perm = torch.arange(n, device=dev)
+    if bad == "perm_int32":
+        perm = perm.int()
+    return invDp, L.view(nb, B, B), b, perm
 
 
 @pytest.mark.gpu
