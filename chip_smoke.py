@@ -50,7 +50,9 @@ NCCL ranks on the card, which NCCL must refuse), determinism
 raster_bwd and aa_bwd launched twice on the same inputs, at the main
 path's shapes and at nefertiti's cap, give the same bits, and so do two
 runs each of the main path, the main path under ``"CG"``, the dense path
-and the teaser's ``ours`` leg, in every loss and final vertex), the figure
+and the teaser's ``ours`` leg, in every loss and final vertex, and the
+bunny leg at 49 views, its step replayed from one CUDA graph, twice and
+once eager), the figure
 experiments (``figures``: the ``--quick`` legs of
 viewpoints, influence and reg_fail), the figures' mesh pictures (``vis``:
 ``render_mesh_image`` on the card against the CPU, the teaser mesh's panel
@@ -773,9 +775,12 @@ def phase_main_path(card):
     losses = res["losses"][:, 0]
     first = res["prof"]["first_step_s"]
     steady = (STEPS - 1) / (res["wall_time"] - first)
+    # the backward kernels run once a step, eager or replayed from the
+    # step's CUDA graph (whose capture launches nothing)
     passed = (bool(np.isfinite(res["losses"]).all())
               and losses[-1] < losses[0]
-              and all(n >= STEPS for n in launches.values()))
+              and all(n >= STEPS for n in launches.values())
+              and launches["raster_bwd"] == launches["aa_bwd"] == STEPS)
     emit({"phase": "main_path_first_step", "first_step_s": first,
           "card": card})
     emit({"phase": "main_path", "passed": passed, "steps": STEPS,
@@ -2137,6 +2142,30 @@ def _repeat(name):
     return res["losses"], res["v_final"]
 
 
+def _bunny_graph_leg(eager=False, steps=30):
+    """(losses, final vertices, ``prof["graph"]``) of the viewpoints
+    experiment's bunny leg at 49 views of 256² (icosphere-4 to gourd-5,
+    boost 3, α 0.95, l1, AdamUniform at 1e-2): traced bins and the dense
+    inverse, so its step replays one CUDA graph; ``eager`` keeps every step
+    out of the graph (the driver's eligibility replaced for the run)."""
+    import importlib
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.io.synth import make_scene
+    drv = importlib.import_module("largesteps_torch.driver.optimize_shape")
+    scene = make_scene(source=("icosphere", 4), target=("gourd", 5),
+                       n_views=49, res=256, seed=SEED)
+    reason = drv._graph_reason
+    if eager:
+        drv._graph_reason = lambda *a: "before_capture"
+    try:
+        res = optimize_shape(scene, {
+            "steps": steps, "step_size": 0.01, "boost": 3, "alpha": 0.95,
+            "loss": "l1"}, device="cuda")
+    finally:
+        drv._graph_reason = reason
+    return res["losses"], res["v_final"], res["prof"]["graph"]
+
+
 def phase_determinism(card):
     """Every sum of a step on the card is added in a fixed order, so a run
     repeats itself to the bit: raster_bwd and aa_bwd launched twice on the
@@ -2148,8 +2177,25 @@ def phase_determinism(card):
     nefertiti (10 steps, rebins included), in every loss and in the final
     vertices.  The first run of each pair is the one an earlier phase made
     (``main_path``, ``dense_path``, ``sharding``'s unsharded legs); a pair
-    whose first run is missing (its phase failed) fails."""
+    whose first run is missing (its phase failed) fails.  The bunny leg at
+    49 views (30 steps, its step replayed from one CUDA graph) runs twice
+    graphed and once eager: the three the same bits."""
     pairs = {}
+    t0 = time.perf_counter()
+    legs = [_bunny_graph_leg(eager) for eager in (False, False, True)]
+    (la, va, ga), (lb, vb, gb), (le, ve, ge) = legs
+    torch.cuda.empty_cache()
+    pairs["bunny_graph"] = {
+        "steps": int(la.shape[0]),
+        "graph": [[g["captures"], g["replays"]] for g in (ga, gb, ge)],
+        "bit_equal": bool(np.array_equal(la, lb) and np.array_equal(va, vb)
+                          and ga["captures"] == gb["captures"] == 1
+                          and ge["captures"] == 0),
+        "eager_bit_equal": bool(np.array_equal(la, le)
+                                and np.array_equal(va, ve)),
+        "s": time.perf_counter() - t0}
+    pairs["bunny_graph"]["bit_equal"] &= pairs["bunny_graph"][
+        "eager_bit_equal"]
     for name in ("main_path", "main_path_cg", "dense_path", "teaser"):
         if name not in REPEATS:
             pairs[name] = {"bit_equal": False, "first_run": "missing"}

@@ -54,6 +54,18 @@ the ranks' replicated work gives them the same bits without a broadcast,
 and every rank returns the same result; with the tile rows in two shards
 and the cameras unsplit it is the unsharded run's, bit for bit.
 
+On the card, an epoch that bins on the device each step (no host bins),
+on an unsharded mesh and the tile renderer, whose solver reads nothing on
+the host (the dense inverse, or ``smooth`` off) runs its step from one CUDA
+graph (:class:`_StepGraph`): the epoch's first step runs eagerly, the
+second captures the step's work (solve → normals → render → loss →
+backward) and replays it, and every later step replays it.  The optimizer
+runs outside the graph, on the gradients the graph writes, so every step
+still calls its ``zero_grad`` and ``step``.  A replay runs the eager
+step's kernels in its order, so a graphed fit is the eager fit's bits.
+``prof["graph"]`` counts the captures, their seconds, the replays and the
+eager steps by reason (:func:`_graph_reason`, and ``before_capture``).
+
 The step's layers, the pipe's setup and scatter, the adjoint solve and
 every host wait on the card are spans (:mod:`largesteps_torch.spans`),
 recorded while a ``torch.profiler`` runs or, with ``trace``, in every step;
@@ -78,6 +90,7 @@ from .. import spans as _spans
 from .._device import resolve_device
 from ..core.geometry import compute_matrix, laplacian_uniform
 from ..core.optimize import Adam, AdamUniform
+from ..core import banded as _banded
 from ..core.banded import BandedSolver
 from ..core.multigrid import describe
 from ..core.parameterize import get_solver, to_differential
@@ -91,6 +104,7 @@ from ..ops.normals import (compute_face_normals, compute_vertex_normals,
 from ..parallel import distributed as pdist
 from ..parallel.sharding import gather_images, make_mesh, shard_renderer
 from ..parallel.tri_shard import ShardedCGSolver
+from ..render import kernels as _kernels
 from ..render.camera import project
 from ..render.pipeline import (bin_triangles_device, bin_triangles_host,
                                suggest_cap)
@@ -515,7 +529,116 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
 
 
 
-def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
+# why an epoch's steps run eagerly: prof["graph"]["eager"]'s keys
+EAGER_REASONS = ("cpu", "sharded", "dense", "host_bins", "iterative_solver",
+                 "host_solver", "banded_solver", "before_capture")
+
+
+def _graph_stats():
+    """A call's ``prof["graph"]``: captures, replays, each capture's host
+    seconds, and the steps run eagerly by reason."""
+    return {"captures": 0, "replays": 0, "capture_s": [],
+            "eager": dict.fromkeys(EAGER_REASONS, 0)}
+
+
+def _graph_reason(st, p, renderer, dev):
+    """Why epoch ``st`` runs its steps eagerly, or None where one CUDA graph
+    replays them: a mesh of ranks (its collectives); the dense renderer;
+    host bins (their rebins read the displacement on the host); a solver
+    that reads the host (CG, the V-cycle and AMG-PCG their residual, the
+    host Cholesky its right-hand side); the banded tier, whose persistent
+    sweep no test has yet run under a capture; else a run off the card.
+    Only the dense inverse, or ``smooth`` off, replays."""
+    if renderer.mesh is not None:
+        return "sharded"
+    if renderer.backend != "tiles":
+        return "dense"
+    if st.use_host_bins:
+        return "host_bins"
+    tier = getattr(st.solver, "tier", None) if p["smooth"] else None
+    if tier == "host":
+        return "host_solver"
+    if tier == "banded":
+        return "banded_solver"
+    if tier not in (None, "dense_inv"):
+        return "iterative_solver"
+    if dev.type != "cuda":
+        return "cpu"
+    return None
+
+
+def _clear_blas_workspaces():
+    """Drop the cuBLAS workspaces PyTorch keeps for each (handle, stream)
+    pair a matrix product has run on.  Around a capture, so that the
+    capture's products take theirs inside the graph's pool and the eager
+    steps' are not held beside them (the step has two: its own thread's
+    and autograd's).  A PyTorch without the hook warns, once: the graphed
+    call's peak then holds both pairs."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is None:
+        warnings.warn("torch._C._cuda_clearCublasWorkspaces is missing: the "
+                      "step's CUDA graph keeps cuBLAS workspaces beside the "
+                      "eager steps'", RuntimeWarning, stacklevel=2)
+        return
+    clear()
+
+
+def _launch_counts():
+    """The hand-written kernels' launch counters, as (table, name, count)."""
+    return [(t, k, n) for t in (_kernels.LAUNCHES, _banded.LAUNCHES)
+            for k, n in t.items()]
+
+
+class _StepGraph:
+    """The work of an epoch's step (solve → normals → render → loss →
+    backward) as one CUDA graph.  :meth:`capture` records it from the
+    step's ``work`` (on PyTorch's capture stream, in the graph's own memory
+    pool, no span recorded inside), with the parameters' gradients unset,
+    so that the graph makes them and writes them on every replay;
+    :meth:`replay` runs it on the current stream (span ``step_graph``),
+    first pointing each parameter's ``.grad`` back at the graph's tensor
+    as the optimizer's ``zero_grad`` drops it, and adds the hand-written
+    kernels' launches of one step to their counters (a capture launches
+    nothing, so it leaves them as they were).
+    ``out`` holds the graph's outputs: the logged (image loss, bilaplacian
+    magnitude) and the solved vertices."""
+
+    def __init__(self, params, stats):
+        self.params, self.stats = params, stats
+        self.graph = self.out = None
+        self.grads = ()
+        self.launches = []
+
+    def capture(self, work):
+        t0 = time.perf_counter()
+        with _span("graph_capture"):
+            _clear_blas_workspaces()
+            before = _launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with _spans.capturing(), torch.cuda.graph(graph):
+                logged, v_unique = work()[:2]
+                out = (logged, v_unique.detach())
+            _clear_blas_workspaces()
+        self.launches = [(t, k, t[k] - n) for t, k, n in before if t[k] > n]
+        for t, k, n in before:
+            t[k] = n
+        self.graph, self.out = graph, out
+        self.grads = [q.grad for q in self.params]
+        self.stats["captures"] += 1
+        self.stats["capture_s"].append(time.perf_counter() - t0)
+
+    def replay(self):
+        for q, g in zip(self.params, self.grads):
+            if g is not None and q.grad is not g:
+                q.grad = g
+        with _span("step_graph"):
+            self.graph.replay()
+        for t, k, n in self.launches:
+            t[k] += n
+        self.stats["replays"] += 1
+
+
+def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer, graph):
     """One optimizer step.  Returns device tensors: ((image loss, logged
     bilaplacian magnitude), the solved vertices of this step's forward, on
     the large-F path the largest screen displacement (px) of a rendered
@@ -523,7 +646,10 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
     solver's (forward, backward) iteration counts (None for a direct one)).
     The solves' warm starts begin at the epoch's source vertices and zero.
     On a mesh the image loss is the rank's share of the mean over every
-    rank's pixels, and the one returned its sum over the ranks."""
+    rank's pixels, and the one returned its sum over the ranks.  ``graph``
+    is the call's ``prof["graph"]``: where :func:`_graph_reason` allows,
+    the epoch's second step captures the step's work into a
+    :class:`_StepGraph` and every step from it replays the graph."""
     dev = renderer.device
     mesh = renderer.mesh
     # the pixels of every rank's images (each rank holds an equal shard)
@@ -537,8 +663,9 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
     v0 = torch.as_tensor(st.v_unique, dtype=torch.float32, device=dev)
     guess = {"fwd": v0, "bwd": torch.zeros_like(v0)}
 
-    def step():
-        optimizer.zero_grad(set_to_none=True)
+    def work():
+        """The step up to its gradients: (logged, v_unique, v_render,
+        iters)."""
         iters = None
         with _span("solve"):
             if p["smooth"]:
@@ -569,6 +696,23 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
             loss.backward()
         # always log the bilaplacian magnitude, like reference main.py:200
         logged = (im_loss.detach(), Lv.detach().square().mean())
+        return logged, v_unique, v_render, iters
+
+    def update():
+        with _span("optimizer"):
+            if not p["use_tr"]:
+                theta["tr"].grad = torch.zeros_like(theta["tr"])
+            optimizer.step()
+
+    def v_out(v_unique):
+        # the coordinates themselves are optimized in place: keep this
+        # step's copy
+        return v_unique.detach() if p["smooth"] \
+            else v_unique.detach().clone()
+
+    def eager():
+        optimizer.zero_grad(set_to_none=True)
+        logged, v_unique, v_render, iters = work()
         if mesh is not None:
             # the image loss summed over the ranks; the logged magnitude,
             # replicated, their mean
@@ -580,21 +724,33 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer):
             # the next step's warm starts: this step's solutions
             guess["fwd"] = v_unique.detach()
             guess["bwd"] = theta["u"].grad
-        with _span("optimizer"):
-            if not p["use_tr"]:
-                theta["tr"].grad = torch.zeros_like(theta["tr"])
-            optimizer.step()
+        update()
         disp = zero
         if st.use_host_bins:
             with _span("displacement"), torch.no_grad():
                 sxy = _sxy(renderer, project(v_render.detach(),
                                              renderer.mvps))
                 disp = (sxy - st.sxy_dev).abs().max()
-        # the coordinates themselves are optimized in place: keep this
-        # step's copy
-        v_out = v_unique.detach() if p["smooth"] \
-            else v_unique.detach().clone()
-        return logged, v_out, disp, iters
+        return logged, v_out(v_unique), disp, iters
+
+    reason = _graph_reason(st, p, renderer, dev)
+    sg = _StepGraph([theta["tr"], theta["u"]], graph)
+    warm = False                # the epoch's eager step before the capture
+
+    def step():
+        nonlocal warm
+        if reason is not None or not warm:
+            graph["eager"][reason or "before_capture"] += 1
+            warm = True
+            return eager()
+        optimizer.zero_grad(set_to_none=True)
+        if sg.graph is None:
+            sg.capture(work)
+        sg.replay()
+        update()
+        logged, v_unique = sg.out
+        return logged, v_out(v_unique if p["smooth"] else theta["u"]), \
+            zero, None
 
     return step
 
@@ -700,6 +856,7 @@ class _Run:
     resume: Any
     setup: dict                 # seconds of the setup's parts
     mesh: Any = None            # the run's (dp, sp) mesh of ranks, or None
+    graph: Any = None           # prof["graph"] (:func:`_graph_stats`)
 
 
 def _prepare(scene, p, dev) -> _Run:
@@ -760,11 +917,13 @@ def _prepare(scene, p, dev) -> _Run:
             v = _solved(st, theta, p).cpu().numpy()[st.duplicate_idx]
             tr = theta["tr"].detach().cpu().numpy() if p["use_tr"] else 0.0
             _rebin(st, p, renderer, v + tr)
-    step = _make_step(st, p, renderer, ref_imgs, theta, optimizer)
+    graph = _graph_stats()
+    step = _make_step(st, p, renderer, ref_imgs, theta, optimizer, graph)
     return _Run(st=st, renderer=renderer, ref_imgs=ref_imgs,
                 v_ref=v_ref, f_ref=f_ref, v_src=v_src, f_src=f_src,
                 theta=theta, optimizer=optimizer, step=step,
-                step_size=step_size, resume=resume, setup=setup, mesh=mesh)
+                step_size=step_size, resume=resume, setup=setup, mesh=mesh,
+                graph=graph)
 
 
 def optimize_shape(scene, params=None, device=None):
@@ -781,7 +940,9 @@ def optimize_shape(scene, params=None, device=None):
     ``params["sharding"]`` every rank of the process group calls this with
     the same arguments and gets the same result (``im_ref`` the whole
     reference images); ``prof["sharding"]`` holds the mesh and the rank's
-    layout.  With ``params["trace"]``, or while a ``torch.profiler`` runs,
+    layout.  ``prof["graph"]`` counts the CUDA graph's captures and
+    replays and the steps run eagerly, by reason (:func:`_graph_stats`).
+    With ``params["trace"]``, or while a ``torch.profiler`` runs,
     ``prof["trace"]`` holds the call's spans and host waits
     (:meth:`largesteps_torch.spans.Recorder.export`)."""
     dev = resolve_device(device)
@@ -823,7 +984,7 @@ def _optimize(scene, p, dev, rec):
               "v_ref": run.v_ref.cpu().numpy(), "f_ref": run.f_ref.copy()}
     prof = {"first_step_s": 0.0, "rebin_s": 0.0, "rebin_n": 0,
             "setup_s": time.perf_counter() - t_setup0, **run.setup,
-            "remeshes": []}
+            "remeshes": [], "graph": run.graph}
     if mesh is not None:
         prof["sharding"] = {"dp": mesh.dp, "sp": mesh.sp,
                             "rank": mesh.rank, "backend": mesh.backend,
@@ -872,9 +1033,10 @@ def _optimize(scene, p, dev, rec):
                 tr = theta["tr"].detach().clone()
                 event["allocated_before"] = _allocated(dev)
                 # free the old epoch before building the new one: its bins,
-                # pipes (Topology), solver factor, the step's closure, the
-                # rebin queues and the optimizer's moments
+                # pipes (Topology), solver factor, the step's closure and
+                # CUDA graph, the rebin queues and the optimizer's moments
                 st = theta = optimizer = step = rebins = v_last = None
+                losses = None       # on the graph path, the graph's outputs
                 gc.collect()
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
@@ -887,7 +1049,7 @@ def _optimize(scene, p, dev, rec):
                 optimizer = _make_optimizer(
                     p["optimizer"], [theta["tr"], theta["u"]], step_size)
                 step = _make_step(st, p, renderer, ref_imgs, theta,
-                                  optimizer)
+                                  optimizer, prof["graph"])
                 rebins = _Rebins(st, p, renderer, theta, it, prof)
             cap = st.bin_cap if st.use_host_bins else renderer.bin_cap
             event.update(
@@ -900,7 +1062,8 @@ def _optimize(scene, p, dev, rec):
             remesh_it = remesh_schedule.pop(0) if remesh_schedule else -1
         rebins.before(it, v_last)
         t_st = time.perf_counter()
-        losses, v_last, disp, iters = step()
+        with _span("step"):
+            losses, v_last, disp, iters = step()
         rebins.after(it, disp)
         if it == start_it:
             _sync(dev, "first_step")

@@ -25,7 +25,10 @@ one JSON line over the last ``--steps`` steps:
   ``pipe_scatter``, ``adjoint_solve``, ``rebin``, ``host_wait``, and on the
   dense path its forward stages), spans a step, host ms, self ms (host ms
   no child span covers) and stream ms (device end minus device start, from
-  CUDA events) a step;
+  CUDA events) a step; on the main path the step's work replays from a
+  CUDA graph after the first step, so its layers are one ``step_graph``
+  span beside ``optimizer``;
+* ``graph``: the call's CUDA-graph counts (``prof["graph"]``);
 * ``host_waits``: per site, waits and host ms a step;
 * ``setup``: the host seconds of the call's setup spans; ``rebins`` and
   ``rebin_routes`` in the counted steps and over the call.
@@ -202,7 +205,7 @@ def profile_main_path(steps: int = 10, warmup: int = 5, trace_dir=None,
                   for s in rec["spans"] if s["step"] is None
                   and s["name"].startswith("setup")},
         "rebins": sum(1 for k in prof["rebin_steps"] if warmup <= k < last),
-        "rebin_routes": prof["rebin_routes"],
+        "rebin_routes": prof["rebin_routes"], "graph": prof["graph"],
         "backend": prof["backend"],
         "solver": prof.get("solver", {}).get("tier"),
         "bin_cap": prof["bin_cap"], "trace": path}

@@ -6,7 +6,9 @@ name: the driver's step layers (``solve``, ``normals``, ``render``,
 dense renderer's stages, the tile pipe's triangle setup and record gather
 (``pipe_setup``) and its chain and scatter (``pipe_scatter``), the adjoint
 solve (``adjoint_solve``) and every place the driver blocks the host on the
-card (``host_wait``, with the ``site`` that waits).
+card (``host_wait``, with the ``site`` that waits), and the driver's own: each
+call of the step (``step``), and on the CUDA-graph path each capture of
+the step's work (``graph_capture``) and each replay (``step_graph``).
 
 While a :class:`Recorder` is active (``optimize_shape`` makes one a call,
 :func:`recording`) and tracing is on, a span also records its name, its
@@ -35,6 +37,11 @@ divergence check every ``nan_check_every`` steps, or the call's end).
 Read events are recorded again by later spans.  The recorder's one module-level handle is the active
 recorder: a span inside the solvers or the pipe (on autograd's thread too)
 has no other way to find it.
+
+While the driver captures a CUDA graph (:func:`capturing`) a span is its
+``record_function`` range alone: it records nothing and no event, since an
+event recorded into a capture is never timed.  A replay of that graph is
+one ``step_graph`` span.
 """
 from __future__ import annotations
 
@@ -47,8 +54,8 @@ import torch
 from torch.autograd import _profiler_enabled
 from torch.profiler import record_function
 
-__all__ = ["span", "setup_span", "waited", "recording", "Recorder",
-           "summarize"]
+__all__ = ["span", "setup_span", "waited", "recording", "capturing",
+           "Recorder", "summarize"]
 
 # libkineto writes a Chrome trace's ``ts`` as µs since the epoch less a
 # base floored to 7,889,238-second intervals (ChromeTraceBaseTime)
@@ -83,6 +90,7 @@ class Recorder:
         self.cuda = torch.device(device).type == "cuda"
         self.always = bool(always)
         self.step = None
+        self.capturing = False      # a CUDA graph capture is under way
         self.used = self.always
         self.records = []           # closed, in closing order
         self._unread = deque()      # closed records whose events are unread
@@ -222,7 +230,7 @@ def span(name: str, site: str | None = None):
     """The range ``name`` (see the module doc); ``site`` names a
     ``host_wait``'s wait."""
     rec = _active
-    if rec is None or not rec.on():
+    if rec is None or rec.capturing or not rec.on():
         return record_function(name)
     return _Span(rec, name, site)
 
@@ -248,6 +256,21 @@ def recording(rec: Recorder):
         yield rec
     finally:
         _active = prev
+
+
+@contextlib.contextmanager
+def capturing():
+    """Mark the block as a CUDA graph capture: the active recorder's spans
+    record nothing inside it (see the module doc)."""
+    rec = _active
+    if rec is None:
+        yield
+        return
+    prev, rec.capturing = rec.capturing, True
+    try:
+        yield
+    finally:
+        rec.capturing = prev
 
 
 def summarize(trace: dict, first: int, last: int) -> dict:

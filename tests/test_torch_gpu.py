@@ -74,6 +74,13 @@ cotangents from a numpy seed.
 * ``vis.render_panel`` (tiles at 128², dense at 96²) with the wireframe
   and a highlight, and ``render_core``'s forward and gradient, on the card
   against the CPU.
+* The step's CUDA graph (``driver/optimize_shape.py:_StepGraph``): 30
+  steps of the viewpoints experiment's bunny leg at 49 views of 256² the
+  same bits graphed and eager (losses, final vertices, the optimizer's
+  moments); the graphed call's peak memory (``max_memory_allocated``,
+  after a warm-up call, as the benchmark reads it) at most 1 % above the
+  eager call's; a remesh frees the old graph with its epoch (allocated
+  memory lower after) and captures again.
 * The span recorder under ``torch.profiler``: each step span's host start
   within 100 µs of its range in the Chrome trace, and its stream interval
   (CUDA events) around the device work launched inside it within 50 µs.
@@ -91,6 +98,9 @@ iterative solves 1e-5 absolute (their tolerances bound the error there),
 the V-cycle, the dense-block matvec and the cotangent Laplacian 1e-5 × the
 largest entry.
 """
+import gc
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -1449,3 +1459,99 @@ def test_gpu_spans_line_up_with_the_chrome_trace(tmp_path):
     assert {s["parent"] for s in steps
             if s["name"] == "adjoint_solve"} == {"backward"}
     assert timed >= len(steps) // 2
+
+
+def _bunny_leg(eager, monkeypatch, steps, res=256, views=49, **extra):
+    """The viewpoints experiment's ``ours`` leg on the bunny scene
+    (icosphere-4 to gourd-5, boost 3, α 0.95, l1, AdamUniform at 1e-2)
+    for ``steps`` steps; ``eager`` keeps every step out of the graph.
+    Returns (result, the optimizer, the tile kernels' launches in the
+    call)."""
+    from largesteps_torch.core.optimize import AdamUniform
+    from largesteps_torch.driver import optimize_shape
+    from largesteps_torch.render import kernels as K
+    drv = importlib.import_module("largesteps_torch.driver.optimize_shape")
+    dev = _card()
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    with monkeypatch.context() as mp:
+        if eager:
+            mp.setattr(drv, "_graph_reason",
+                       lambda *a: "before_capture")
+        scene = make_scene(source=("icosphere", 4), target=("gourd", 5),
+                           n_views=views, res=res)
+        box = {}
+        make = lambda ps, lr: box.setdefault("opt", AdamUniform(ps, lr=lr))
+        res_ = optimize_shape(scene, {
+            "steps": steps, "step_size": 0.01, "boost": 3, "alpha": 0.95,
+            "loss": "l1", "optimizer": make, **extra}, device=dev)
+    return res_, box["opt"], dict(K.LAUNCHES)
+
+
+@pytest.mark.gpu
+def test_gpu_step_graph_is_the_eager_fit(monkeypatch):
+    """30 steps of the bunny leg at 49 views: the graphed fit (one capture,
+    29 replays) and the eager one give the same bits in every logged
+    loss, the final vertices and translation, and AdamUniform's moments.
+    Both launch the backward tile kernels once a step: the capture counts
+    none, a replay one."""
+    (rg, og, lg), (re_, oe, le) = (_bunny_leg(e, monkeypatch, 30)
+                                   for e in (False, True))
+    g, e = rg["prof"]["graph"], re_["prof"]["graph"]
+    assert (g["captures"], g["replays"]) == (1, 29)
+    for launches in (lg, le):
+        assert (launches["raster_bwd"], launches["aa_bwd"]) == (30, 30)
+    assert lg == le
+    assert g["eager"]["before_capture"] == 1
+    assert (e["captures"], e["replays"]) == (0, 0)
+    assert np.isfinite(rg["losses"]).all()
+    assert np.array_equal(rg["losses"], re_["losses"])
+    assert np.array_equal(rg["v_final"], re_["v_final"])
+    assert np.array_equal(rg["tr"], re_["tr"])
+    for pg, pe in zip(og.param_groups[0]["params"],
+                      oe.param_groups[0]["params"]):
+        for k in ("g1", "g2"):
+            assert torch.equal(og.state[pg][k], oe.state[pe][k]), k
+
+
+@pytest.mark.gpu
+def test_gpu_step_graph_holds_the_eager_peak_memory(monkeypatch):
+    """The graphed call's ``max_memory_allocated`` over a 30-step call of
+    the bunny leg at 49 views, read as ``perfbench/run.py`` reads it (a
+    warm-up call first, its state freed and the peak reset), is at most
+    1.01 times the eager call's."""
+    peaks = {}
+    for eager in (True, False):
+        _bunny_leg(eager, monkeypatch, 4)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = _bunny_leg(eager, monkeypatch, 30)[0]
+        torch.cuda.synchronize()
+        peaks[eager] = torch.cuda.max_memory_allocated()
+        assert res["prof"]["graph"]["replays"] == (0 if eager else 29)
+        del res
+        gc.collect()
+    assert peaks[False] <= 1.01 * peaks[True], peaks
+
+
+@pytest.mark.gpu
+def test_gpu_step_graph_recaptures_after_a_remesh(monkeypatch):
+    """A remesh at step 4 of a 10-step bunny leg (4 views of 128²; the
+    remeshed mesh still bins on the card each step): the old graph goes
+    with its epoch (allocated memory lower once it is freed, and no higher
+    than the eager run's then), and the new epoch captures again: two captures, one for each epoch, and every
+    step but each epoch's first replays a graph."""
+    res = _bunny_leg(False, monkeypatch, 10, res=128, views=4, remesh=4)[0]
+    eager = _bunny_leg(True, monkeypatch, 10, res=128, views=4, remesh=4)[0]
+    g = res["prof"]["graph"]
+    (ev,) = res["prof"]["remeshes"]
+    # nothing of the old graph outlives its epoch: no more is allocated
+    # then than in the eager run
+    assert ev["allocated_after"] <= eager["prof"]["remeshes"][0][
+        "allocated_after"]
+    assert not ev["use_host_bins"]
+    assert g["captures"] == len(res["f"]) == 2
+    assert g["replays"] == 10 - 2 and g["eager"]["before_capture"] == 2
+    assert ev["allocated_after"] < ev["allocated_before"]
+    assert np.isfinite(res["losses"]).all()

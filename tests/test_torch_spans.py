@@ -35,7 +35,7 @@ PARENT = {"adjoint_solve": {"backward"},
           "pipe_scatter": {"backward"}, "setup.reference": {"setup"},
           "setup.topology": {"setup"}, "setup.bins": {"setup"},
           "setup.matrix": {"setup"}, "setup.factor": {"setup"},
-          "setup": {None}, "host_wait": {None, "rebin", "setup.reference",
+          "setup": {None}, "step": {None}, "host_wait": {None, "rebin", "setup.reference",
                                          "setup.topology", "setup.bins",
                                          "setup"}}
 
@@ -81,7 +81,7 @@ def test_spans_names_parents_and_steps(runs):
             assert s["parent"] in PARENT[s["name"]], s
         if s["name"] in STEP_SPANS - {"host_wait"} \
                 and s["parent"] != "setup.reference":
-            assert s["parent"] in (None, "render", "backward"), s
+            assert s["parent"] in (None, "step", "render", "backward"), s
             assert s["step"] in range(PARAMS["steps"]), s
         if s["name"].startswith("setup"):
             assert s["step"] is None, s
