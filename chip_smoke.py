@@ -13,10 +13,11 @@ main path (the ``bench.py:bench_step`` scene: icosphere-4 fitted to gourd-4,
 steps through the port's ``optimize_shape``.  Then the large-F path at the
 teaser's nefertiti scale (icosphere-7, 327,680 faces, fitted to gourd-7, 13
 views at 256²): each kernel against its plain version on the 13 views'
-host bins at the run's cap, the batched and the camera-sequential prebinned
-pipes against each other, and 20 steps of the teaser's ``ours`` leg
-(boost 3, α = 0.98, l1, AdamUniform at 2e-3; host bins, device rebins, the
-banded solver).  Between the two, the rasterizer micro-benchmarks' path:
+host bins at the run's cap (and the prebinned pipe's backward glue kernel
+against its plain route on the card, on the bins' face→slot inverse), the
+batched and the camera-sequential prebinned pipes against each other, and
+20 steps of the teaser's ``ours`` leg (boost 3, α = 0.98, l1,
+AdamUniform at 2e-3; host bins, device rebins, the banded solver).  Between the two, the rasterizer micro-benchmarks' path:
 ``largesteps_torch.benchmarks`` (micro_scatter at the main path's and at
 nefertiti's shape, probe_mosaic, bench_raster) with the launch counts of
 their two kernels read around it, each of the two kernels against its
@@ -87,6 +88,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from largesteps_torch.profiling import CHIP_SPECS  # noqa: E402
+from largesteps_torch.render.kernels import TILE_KERNELS  # noqa: E402
 
 SEED = 0
 STEPS = 20
@@ -398,7 +400,7 @@ def large_f_inputs():
     f = scene["mesh-source"]["faces"]
     topo = Topology(f)
     vs = scene["mesh-source"]["vertices"]
-    bins, counts, occ = host_bins(r, vs, f, 4.0)
+    bins, counts, fslots, occ = host_bins(r, vs, f, 4.0, return_slots=True)
     cap = bins.shape[-1]
     vt_np, ft = scene["mesh-target"]["vertices"], scene["mesh-target"]["faces"]
     tb, tc, _ = host_bins(r, vt_np, ft, 0.0)
@@ -430,7 +432,8 @@ def large_f_inputs():
     return {"occ": occ, "cap": cap, "res": res, "rfb": rfb, "rbb": rbb,
             "counts": counts, "fid": fid, "z": z, "slot": slot,
             "comp": comp, "d_out": d_out, "d_col": d_col,
-            "n_faces": f.shape[0]}
+            "n_faces": f.shape[0], "fslots": up(fslots).long(),
+            "boost": r.boost}
 
 
 def check_kernels(m, card, phase, reps, plain_reps):
@@ -655,18 +658,81 @@ def check_banded_sweep(card, ptxas):
     return passed, row
 
 
-def phase_large_f_kernels(card):
+def phase_large_f_kernels(card, ptxas):
     """Each kernel against its plain version at the large-F run's shapes:
     13 views of nefertiti through the epoch's host bins (the plain versions
-    timed on the one call compared)."""
+    timed on the one call compared), and the backward glue kernel (row 8)."""
     m = large_f_inputs()
     ok, table = check_kernels(m, card, "large_f_kernel", 10, 0)
     TWICE["large_f"] = launched_twice(m)
+    chain_ok, table["chain_face_rows"] = check_chain_face_rows(m, card, ptxas)
+    ok = ok and chain_ok
     for row in table.values():
         row["cap"] = m["cap"]
     del m
     torch.cuda.empty_cache()
     return ok, table
+
+
+def check_chain_face_rows(m, card, ptxas):
+    """Row 8: the prebinned pipe's backward glue kernel at the large-F
+    run's shapes (13 views of nefertiti, the epoch's host bins and their
+    face→slot inverse, one backward's raster_bwd and aa_bwd sums): the bits
+    of its plain route on the card, ``slot_face_rows(chain_planes(...))``
+    (timed as ``plain_ms``), two launches the same bits, its time by CUDA
+    events and by ``torch.profiler``, and its byte bound from the live
+    entries of fslots: the 33 columns read of each (``bound_ms``; the
+    32-byte sectors that hold them, 192 bytes, ``bound_ms_sectors``), plus
+    fslots and the output."""
+    from largesteps_torch.render import kernels as K
+    from largesteps_torch.render.pipeline import (chain_planes, first_half,
+                                                  slot_face_rows)
+    res, rbb, fslots, boost = m["res"], m["rbb"], m["fslots"], m["boost"]
+    zeros = torch.zeros_like(m["fid"])
+    dslot = K.raster_bwd(rbb, m["counts"], m["slot"], m["d_col"], zeros,
+                         zeros, res)
+    _, dslot_aa = K.aa_bwd(rbb, m["counts"], m["fid"], m["z"], m["comp"],
+                           m["d_out"], res)
+    C, TY, TX, cap, _ = rbb.shape
+    upper = first_half(TY, device=rbb.device)
+    kern = lambda: K.chain_face_rows(dslot, dslot_aa, boost, rbb, fslots,
+                                     TY // 2)
+    plain = lambda: slot_face_rows(chain_planes(dslot, dslot_aa, boost, rbb),
+                                   fslots, upper)
+    got, again = kern(), kern()
+    want = plain()
+    torch.cuda.synchronize()
+    bit_equal = bool(torch.equal(got, want))
+    TWICE["chain_face_rows"] = bool(torch.equal(got, again))
+    scale = float(want.abs().max())
+    passed = bit_equal and TWICE["chain_face_rows"] and scale > 0
+    live = int((fslots < TY * TX * cap).sum())
+    rest = nbytes(fslots, got)
+    ms = time_ms(kern, 20)
+    dev_ms = device_ms(kern, 10)
+    plain_ms = time_ms(plain, 3, warm=1)
+    plain_dev_ms = device_ms(plain, 3)
+    row = {"name": "chain_face_rows", "route": "cuda",
+           "source": "largesteps_torch/csrc/chain_face_rows.cu",
+           "replaces": "none: largesteps_tpu/render/pallas_core.py:1201-1235, "
+                       "1260-1321 (_chain_planes, _scatter_via_slots; XLA "
+                       "glue)",
+           "launches": None, "bit_equal": bit_equal, "scale": scale,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "plain_device_ms": plain_dev_ms,
+           "bound_ms": (live * 33 * F32 + rest) / PEAK_BYTES * 1e3,
+           "bound_ms_sectors": (live * 192 + rest) / PEAK_BYTES * 1e3,
+           "bound_by": "bytes", "live_entries": live,
+           "shape": {"C": C, "T": TY * TX, "cap": cap,
+                     "F": fslots.shape[1] - 1, "K": fslots.shape[2]},
+           "ptxas": ran(ptxas["chain_face_rows"], "chain_face_rows")}
+    emit({"phase": "large_f_kernel", "name": "chain_face_rows",
+          "passed": passed, **{k: v for k, v in row.items()
+                               if k not in ("route", "source", "launches")},
+          "tolerance": "the plain route's bits on the card",
+          "twice_bit_equal": TWICE["chain_face_rows"], "card": card})
+    del dslot, dslot_aa, got, again, want
+    return passed, row
 
 
 def phase_render_cpu_vs_card(card):
@@ -779,7 +845,7 @@ def phase_main_path(card):
     # step's CUDA graph (whose capture launches nothing)
     passed = (bool(np.isfinite(res["losses"]).all())
               and losses[-1] < losses[0]
-              and all(n >= STEPS for n in launches.values())
+              and all(launches[k] >= STEPS for k in TILE_KERNELS)
               and launches["raster_bwd"] == launches["aa_bwd"] == STEPS)
     emit({"phase": "main_path_first_step", "first_step_s": first,
           "card": card})
@@ -1375,7 +1441,7 @@ def phase_fit_quality(card):
     passed = (all(np.isfinite(x) for x in h.values())
               and h["ours"] < h["bilapreg"] < h["lapreg"]
               and h["ours"] <= FIT_OURS_MAX
-              and all(n >= 1 for n in launches.values()))
+              and all(launches[k] >= 1 for k in TILE_KERNELS))
     emit({"phase": "fit_quality", "passed": passed, "legs": legs,
           "jax_hausdorff": JAX_SUZANNE, "ours_max": FIT_OURS_MAX,
           "launches": launches, "output_dir": common.OUTPUT_DIR,
@@ -1396,7 +1462,7 @@ def _epochs(res, counts):
     out = epochs(res)
     for k, ep in enumerate(out):
         ep["launches"] = {key: counts[k + 1][key] - counts[k][key]
-                          for key in counts[0]}
+                          for key in TILE_KERNELS}
     return out
 
 
@@ -1565,7 +1631,7 @@ def phase_remesh(card):
                                and max(rel["CholeskyHost"]) <= 5e-2
                                and runs["CholeskyHost"]["tier"] == "host")
     launches = dict(launches)
-    checks["launches"] = all(n >= 1 for n in launches.values())
+    checks["launches"] = all(launches[k] >= 1 for k in TILE_KERNELS)
     passed = all(checks.values())
     emit({"phase": "remesh", "passed": passed, "checks": checks,
           "hausdorff": {k: leg_["hausdorff"] for k, leg_ in legs.items()},
@@ -1639,8 +1705,8 @@ def phase_solvers(card):
         losses = out["losses"]
         out["falls"] = (bool(np.isfinite(res["losses"]).all())
                         and losses[-1] < losses[0]
-                        and all(n >= STEPS
-                                for n in out["launches"].values()))
+                        and all(out["launches"][k] >= STEPS
+                                for k in TILE_KERNELS))
         return out
 
     # (a) the main path under CG, beside the dense inverse
@@ -1735,7 +1801,7 @@ def phase_solvers(card):
     checks["cotan"] = max(cot_err) <= 1e-5
 
     launches = dict(launches)
-    checks["launches"] = all(n >= 3 * STEPS for n in launches.values())
+    checks["launches"] = all(launches[k] >= 3 * STEPS for k in TILE_KERNELS)
     passed = all(checks.values())
     for r in (*main.values(), amg):
         r["losses"] = {"first": float(r["losses"][0]),
@@ -2083,7 +2149,8 @@ def phase_sharding(card):
         ok = (bool(np.isfinite(lg).all()) and lg[-1] < lg[0]
               and rel[0] <= 1e-4 and max(rel) <= 5e-2 and same
               and all(rb == rebins[0] for rb in rebins)
-              and all(n >= 1 for g in got for n in g["launches"].values()))
+              and all(g["launches"][k] >= 1 for g in got
+                      for k in TILE_KERNELS))
         if leg == "teaser":
             # the rebin decisions lag a fixed step, so the unsharded run
             # rebins on the same steps
@@ -2216,10 +2283,13 @@ def phase_determinism(card):
     passed = (all(p["bit_equal"] for p in pairs.values())
               and all(k is not None and k["raster_bwd"] and k["aa_bwd"]
                       for k in kernels.values())
-              and TWICE.get("banded_sweep") is True)
+              and TWICE.get("banded_sweep") is True
+              and TWICE.get("chain_face_rows") is True)
     emit({"phase": "determinism", "passed": passed, "runs": pairs,
           "kernels_twice": kernels,
-          "banded_sweep_twice": TWICE.get("banded_sweep"), "card": card})
+          "banded_sweep_twice": TWICE.get("banded_sweep"),
+          "chain_face_rows_twice": TWICE.get("chain_face_rows"),
+          "card": card})
     return passed
 
 
@@ -2258,7 +2328,7 @@ def phase_figures(card):
         ran_ = {k: launches[k] - before[k] for k in launches}
         ok = (bool(legs) and all(l["files"] and l["falls"]
                                  for l in legs.values())
-              and all(n >= 1 for n in ran_.values()))
+              and all(ran_[k] >= 1 for k in TILE_KERNELS))
         exps[exp] = {"passed": ok, "legs": legs, "launches": ran_,
                      "s": time.perf_counter() - t0}
         passed = passed and ok
@@ -2508,7 +2578,7 @@ def phase_bench(card):
               and any(n.startswith("sharded_cg_163842v_gpu2") for n in names)
               and names[-1] == "opt_iters_per_s"
               and all(np.isfinite(line["value"]) for line in lines)
-              and all(n >= 1 for n in launches.values()))
+              and all(launches[k] >= 1 for k in TILE_KERNELS))
     emit({"phase": "bench_summary", "passed": passed, "metrics": names,
           "launches": launches, "card": card})
     return passed, launches
@@ -2530,7 +2600,8 @@ def main():
                       ("probe_kernels", phase_probe_kernels),
                       ("dense_render", phase_dense_render),
                       ("dense_path", phase_dense_path),
-                      ("large_f_kernels", phase_large_f_kernels),
+                      ("large_f_kernels",
+                       lambda c: phase_large_f_kernels(c, ptxas)),
                       ("large_f_pipes", phase_large_f_pipes),
                       ("large_f", phase_large_f),
                       ("fit_quality", phase_fit_quality),
@@ -2596,6 +2667,10 @@ def main():
     # large-F run's, a forward and an adjoint solve a step
     sweep = table.pop("banded_sweep")
     sweep["large_f_launches"] = f_launches.pop("banded_sweep")
+    # row 8 runs on the prebinned pipe with the face→slot inverse alone:
+    # its launches are the large-F run's, one a step
+    chain = f_table.pop("chain_face_rows")
+    chain["large_f_launches"] = f_launches.pop("chain_face_rows")
     for k, row in table.items():
         row["launches"] = launches[k]
         big = f_table[k]
@@ -2620,7 +2695,7 @@ def main():
         for r in (row, *row["other_shapes"]):
             r["ptxas"] = ran(ptxas[k], micro_instance(k, r["launch"]))
     emit({"kernels": list(table.values()) + list(p_table.values())
-          + [sweep]})
+          + [sweep, chain]})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

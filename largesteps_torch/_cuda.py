@@ -75,9 +75,14 @@ _SIGNATURES = {
     # width, strips, stages, shared bytes, blocks an SM holds} at (B, k)
     "ls_banded_sweep": ([_P] * 6 + [_I] * 4 + [_P], _I),
     "ls_banded_sweep_plan": ([_I, _I, _P], None),
+    # the prebinned pipe's backward glue (render/kernels.py:chain_face_rows):
+    # (dslot, dslot_aa, rbb, fslots, dface, C, F+1, K, T·cap, TX·cap,
+    # up_rows, boost, stream)
+    "ls_chain_face_rows": ([_P] * 5 + [_I, _I, _I, ctypes.c_longlong,
+                                       ctypes.c_longlong, _I, _F, _P], _I),
 }
 _KERNELS = ("raster_fwd", "raster_bwd", "aa_fwd", "aa_bwd", "onehot_scatter",
-            "probe_tile", "banded_sweep")
+            "probe_tile", "banded_sweep", "chain_face_rows")
 
 _lock = threading.Lock()
 _handles: dict = {}

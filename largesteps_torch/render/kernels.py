@@ -1,14 +1,16 @@
-"""The four per-tile kernels of the render pipeline, each beside its plain
-PyTorch version.
+"""The four per-tile kernels of the render pipeline and the prebinned pipe's
+backward glue, each beside its plain PyTorch version.
 
-=============  ==========================================  ==================
-wrapper        replaces (``largesteps_tpu/render/...``)    CUDA source
-=============  ==========================================  ==================
-raster_fwd     ``pallas_core.py:raster_fwd_pallas``        ``csrc/raster_fwd.cu``
-aa_fwd         ``pallas_core.py:aa_fwd_pallas``            ``csrc/aa_fwd.cu``
-raster_bwd     ``pallas_core.py:raster_bwd_pallas``        ``csrc/raster_bwd.cu``
-aa_bwd         ``pallas_core.py:aa_bwd_pallas``            ``csrc/aa_bwd.cu``
-=============  ==========================================  ==================
+===============  ==========================================  ========================
+wrapper          replaces (``largesteps_tpu/render/...``)    CUDA source
+===============  ==========================================  ========================
+raster_fwd       ``pallas_core.py:raster_fwd_pallas``        ``csrc/raster_fwd.cu``
+aa_fwd           ``pallas_core.py:aa_fwd_pallas``            ``csrc/aa_fwd.cu``
+raster_bwd       ``pallas_core.py:raster_bwd_pallas``        ``csrc/raster_bwd.cu``
+aa_bwd           ``pallas_core.py:aa_bwd_pallas``            ``csrc/aa_bwd.cu``
+chain_face_rows  no Pallas kernel: ``pallas_core.py``'s       ``csrc/chain_face_rows.cu``
+                 ``_chain_planes`` and ``_scatter_via_slots``
+===============  ==========================================  ========================
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
 the plain version (``*_plain``, same signature and layout), a CUDA tensor to
@@ -43,7 +45,8 @@ import torch
 
 __all__ = ["raster_fwd", "raster_fwd_plain", "raster_bwd",
            "raster_bwd_plain", "aa_fwd", "aa_fwd_plain", "aa_bwd",
-           "aa_bwd_plain", "LAUNCHES", "TILE_H", "TILE_W", "BIG"]
+           "aa_bwd_plain", "chain_face_rows", "chain_face_rows_plain",
+           "LAUNCHES", "TILE_KERNELS", "TILE_H", "TILE_W", "BIG"]
 
 BIG = 3.4e38
 TILE_H = 32
@@ -51,7 +54,8 @@ TILE_W = 128
 _P = TILE_H * TILE_W
 _CHUNK = 16            # bin slots per step of the plain versions' loops
 
-LAUNCHES = {"raster_fwd": 0, "aa_fwd": 0, "raster_bwd": 0, "aa_bwd": 0}
+TILE_KERNELS = ("raster_fwd", "aa_fwd", "raster_bwd", "aa_bwd")
+LAUNCHES = {**dict.fromkeys(TILE_KERNELS, 0), "chain_face_rows": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -666,3 +670,66 @@ def aa_bwd_plain(rec_bwd_b, counts_b, fid, z, color, d_out, resolution,
     d_color = _aa_bwd_combine(_from_tiles(acc), d_out,
                               _from_tiles(dcolb[0]), db_v)
     return (d_color, dslot) if halo is None else (d_color, dslot, db_v[:, -1])
+
+
+# ---------------------------------------------------------------------------
+# 5. the prebinned pipe's backward glue: chained per-slot sums → face rows
+# ---------------------------------------------------------------------------
+
+def chain_face_rows(dslot, dslot_aa, boost, rbb, fslots, up_rows):
+    """The per-(camera, face) rows (C, F+1, 18) [per corner: dx dy dw dA0
+    dA1 dA2] of a prebinned pipe's per-slot sums:
+    ``slot_face_rows(chain_planes(dslot, dslot_aa, boost, rbb), fslots,
+    upper)`` (:mod:`largesteps_torch.render.pipeline`), ``upper`` the first
+    ``up_rows`` tile rows, the same bits on the card.
+
+    dslot (C, TY, TX, cap, 32) raster sums, dslot_aa (C, TY, TX, cap, 8)
+    antialias endpoint sums, rbb (C, TY, TX, cap, 32) backward records,
+    fslots (C, F+1, K) int64 flat slot indices in tile order with the
+    sentinel TY·TX·cap.  A CUDA tensor goes to the kernel (one launch,
+    counted in ``LAUNCHES``; no (C, T, cap, 18) table), a CPU tensor to
+    :func:`chain_face_rows_plain`."""
+    if _device_kind(dslot, dslot_aa, rbb, fslots) == "cpu":
+        return chain_face_rows_plain(dslot, dslot_aa, boost, rbb, fslots,
+                                     up_rows)
+    from .. import _cuda
+    _check_cuda_inputs("chain_face_rows", dslot=dslot, dslot_aa=dslot_aa,
+                       rbb=rbb)
+    if fslots.dtype != torch.int64 or not fslots.is_contiguous():
+        raise ValueError("chain_face_rows: fslots must be a contiguous "
+                         f"torch.int64 tensor, got {fslots.dtype}"
+                         f"{'' if fslots.is_contiguous() else ' (strided)'}")
+    _check_aligned("chain_face_rows", dslot, dslot_aa, rbb)
+    C, ty, tx, cap, _ = dslot.shape
+    if (dslot.shape[-1] != 32 or rbb.shape != dslot.shape
+            or dslot_aa.shape != (C, ty, tx, cap, 8)
+            or fslots.dim() != 3 or fslots.shape[0] != C):
+        raise ValueError(
+            f"chain_face_rows: dslot {tuple(dslot.shape)}, dslot_aa "
+            f"{tuple(dslot_aa.shape)}, rbb {tuple(rbb.shape)}, fslots "
+            f"{tuple(fslots.shape)}: want (C, TY, TX, cap, 32), (..., 8), "
+            "(..., 32) and (C, F+1, K)")
+    if not 0 <= up_rows <= ty:
+        raise ValueError(f"chain_face_rows: up_rows {up_rows} of {ty} tile "
+                         "rows")
+    F1, K = fslots.shape[1:]
+    dface = torch.empty((C, F1, 18), dtype=torch.float32,
+                        device=dslot.device)
+    err = _cuda.library("chain_face_rows")(
+        dslot.data_ptr(), dslot_aa.data_ptr(), rbb.data_ptr(),
+        fslots.data_ptr(), dface.data_ptr(), C, F1, K, ty * tx * cap,
+        tx * cap, int(up_rows), float(np.float32(boost)),
+        _cuda.stream(dslot.device))
+    _cuda.check("chain_face_rows", err)
+    LAUNCHES["chain_face_rows"] += 1
+    return dface
+
+
+def chain_face_rows_plain(dslot, dslot_aa, boost, rbb, fslots, up_rows):
+    """Plain PyTorch version of :func:`chain_face_rows`: the per-slot table
+    of :func:`~largesteps_torch.render.pipeline.chain_planes`, summed into
+    face rows by :func:`~largesteps_torch.render.pipeline.slot_face_rows`."""
+    from .pipeline import chain_planes, slot_face_rows
+    upper = torch.arange(dslot.shape[1], device=dslot.device) < up_rows
+    return slot_face_rows(chain_planes(dslot, dslot_aa, boost, rbb), fslots,
+                          upper)

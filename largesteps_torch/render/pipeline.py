@@ -649,7 +649,8 @@ class RenderPipeline:
     With ``prebinned`` the op takes precomputed bins and skips the traced
     binning: ``pipe(v_clip, attrs, bg, bins (C, T, cap), counts (C, T))``,
     and with ``slots_k=K`` also ``fslots (C, F+1, K)``, through which the
-    backward gathers each face's slot sums (:func:`scatter_via_slots`).
+    backward gathers each face's slot sums (:func:`scatter_via_slots`; on
+    the card one kernel, :func:`kernels.chain_face_rows`).
     The bins take no gradient.
 
     With a ``mesh`` (:class:`largesteps_torch.parallel.distributed.Mesh`)
@@ -826,8 +827,18 @@ def _chain_scatter(pipe, sums, rbb, bins, fslots, incidence, n_verts):
     """The per-slot sums chained to clip space and scattered to the
     vertices (span ``pipe_scatter``): (dv_clip, d_attrs) of :func:`_scatter`.
     ``sums`` is emptied once chained, so that its tables (some 1.8 GB at
-    nefertiti) are freed before the scatter runs."""
+    nefertiti) are freed before the scatter runs.  A pipe given the
+    face→slot inverse on the card chains and sums each face's slots in one
+    kernel (:func:`kernels.chain_face_rows`, the bits of
+    :func:`slot_face_rows` of :func:`chain_planes`), with no per-slot
+    table."""
     with _span("pipe_scatter"):
+        if fslots and rbb.is_cuda and pipe.ablate != "scatter":
+            # a pipe with fslots is unsharded: its first half is TY // 2 rows
+            dface = kernels.chain_face_rows(*sums, pipe.boost, rbb,
+                                            fslots[0], pipe.ty // 2)
+            sums.clear()
+            return _faces_to_vertices(dface, incidence)
         table18 = chain_planes(*sums, pipe.boost, rbb)
         sums.clear()
         return _scatter(pipe, table18, bins, fslots, incidence, n_verts)

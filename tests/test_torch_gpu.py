@@ -42,6 +42,14 @@ cotangents from a numpy seed.
   plain loop within 1e-5, the float64 residual at most 2e-6, two launches
   the same bits, the launches counted, arguments it does not take
   refused.
+* The prebinned pipe's backward glue kernel
+  (``render/kernels.py:chain_face_rows``): the bits of
+  ``slot_face_rows(chain_planes(...))`` on the card at 1 and 2 cameras
+  (faces straddling the halves, sentinels inside their runs, row F, inf
+  and NaN columns, −0.0 sums, a zero ``dslot_aa``), two launches the same
+  bits, one launch a backward of a prebinned pipe given the face→slot
+  inverse (one a camera in the camera-sequential pipe, none in the
+  unbinned or an ablated one), and the inputs it refuses.
 * The micro-benchmarks' kernels: ``onehot_scatter`` with P not a multiple
   of 4,096, ids out of range (−1, n_faces, far past it) and 18 and 32
   channels; at 1, 3, 18, 32 and 33 channels (scalar, v2 and v4
@@ -89,7 +97,7 @@ Tolerances: face and slot ids exact, the other forward planes and d_colour
 1e-6 absolute (the library is built with ``-fmad=false`` and repeats the
 plain version's operations in order); per-slot sums 1e-5 × max|sum| (the
 kernels add in another order than ``index_add_``, and so do
-onehot_scatter's and probe_tile's sums); probe_tile's fields exact; bins exact; the banded solve
+onehot_scatter's and probe_tile's sums); probe_tile's fields exact; bins exact; the glue kernel exact; the banded solve
 1e-5 relative; pipe and dense images 1e-5 absolute and gradients 1e-4 ×
 max|g| (the projection and the glue run as PyTorch's CUDA kernels); the
 remeshed run's topology exact and its losses 1e-4 relative; the host
@@ -715,6 +723,125 @@ def test_gpu_prebinned_pipes_match_cpu(big):
     assert _max_abs(ag, ac) < 1e-4 * float(ac.abs().max())
 
 
+def _chain_case(n_cams, zero_aa, dev):
+    """Per-slot sums, records and a face→slot inverse on ``dev``: 1 camera
+    of 128² (4 × 1 tiles, cap 256, 300 faces, K = 4) or 2 of 256² (8 × 2
+    tiles, cap 512, 5,000 faces, K = 6).  Each face's slots are distinct
+    and in tile order, a third of them sentinels (T·cap) inside the runs;
+    row F is all sentinels.  Face 0 straddles the halves, faces 1-2 hold a
+    slot with an inf and a NaN column, face 3 a lower slot before an upper
+    one, face 4 a slot of −0.0 sums alone.  ``zero_aa`` zeroes dslot_aa."""
+    rng = np.random.default_rng(11 + n_cams)
+    TY, TX, cap, F, Kn = (4, 1, 256, 300, 4) if n_cams == 1 \
+        else (8, 2, 512, 5_000, 6)
+    C, S = n_cams, TY * TX * cap
+    rand = lambda *shape: torch.as_tensor(
+        rng.standard_normal(shape).astype(np.float32))
+    dslot, rbb = rand(C, TY, TX, cap, 32), rand(C, TY, TX, cap, 32)
+    dslot_aa = rand(C, TY, TX, cap, 8)
+    if zero_aa:
+        dslot_aa.zero_()
+    up = TX * cap * (TY // 2)                   # first slot of the lower half
+    dslot.view(C, S, 32)[:, 7, 3] = float("inf")
+    dslot.view(C, S, 32)[:, 7, 8] = float("nan")
+    dslot.view(C, S, 32)[:, 9] = -0.0
+    dslot_aa.view(C, S, 8)[:, 9] = -0.0
+    fslots = np.full((C, F + 1, Kn), S, np.int64)
+    for c in range(C):
+        fslots[c, :F] = np.sort(np.stack([rng.choice(S, Kn, replace=False)
+                                          for _ in range(F)]), axis=1)
+    fslots[:, :F][rng.random((C, F, Kn)) < 1 / 3] = S
+    fslots[:, :5] = S
+    fslots[:, 0, :3] = [3, S, up + 1]
+    fslots[:, 1, :2] = [7, up + 7]
+    fslots[:, 2, 1] = 7
+    fslots[:, 3, :3] = [up + 2, 4, S]
+    fslots[:, 4, 0] = 9
+    return (dslot.to(dev), dslot_aa.to(dev), rbb.to(dev),
+            torch.as_tensor(fslots).to(dev), TY)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("zero_aa", [False, True], ids=["aa", "zero_aa"])
+@pytest.mark.parametrize("n_cams", [1, 2])
+def test_gpu_chain_face_rows_is_the_composition(n_cams, zero_aa):
+    """The glue kernel gives the bits of ``slot_face_rows(chain_planes(...))``
+    run on the card (``_chain_case``), and two launches the same bits."""
+    from largesteps_torch.render.pipeline import (chain_planes, first_half,
+                                                  slot_face_rows)
+    dev = _card()
+    dslot, dslot_aa, rbb, fslots, TY = _chain_case(n_cams, zero_aa, dev)
+    before = K.LAUNCHES["chain_face_rows"]
+    got = K.chain_face_rows(dslot, dslot_aa, 3.0, rbb, fslots, TY // 2)
+    again = K.chain_face_rows(dslot, dslot_aa, 3.0, rbb, fslots, TY // 2)
+    want = slot_face_rows(chain_planes(dslot, dslot_aa, 3.0, rbb), fslots,
+                          first_half(TY, device=dev))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["chain_face_rows"] == before + 2
+    assert torch.equal(got, want) and torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    assert (got[:, :4].abs().amax(dim=2) > 0).all()        # faces 0-3 live
+    assert torch.equal(got[:, -1], torch.zeros_like(got[:, -1]))
+    assert not torch.signbit(got[:, 4]).any()           # −0.0 sums add to +0
+
+
+@pytest.mark.gpu
+def test_gpu_chain_face_rows_launches_once_a_backward():
+    """A backward of the batched prebinned pipe given the face→slot
+    inverse launches the glue kernel once, the camera-sequential pipe once
+    a camera; the unbinned pipe and an ablated scatter launch it never."""
+    dev = _card()
+    scene, f, v_ndc, cap = _large_f_case(n_views=2, level=4)
+    faces = torch.as_tensor(f.astype(np.int64))
+    binned = [t.to(dev) for t in bin_triangles_device(
+        v_ndc, faces, (256, 256), cap, margin=4.0)[:3]]
+    attrs = torch.rand((v_ndc.shape[1], 3), device=dev)
+    bg = Renderer(scene, device="cpu").bgs.to(dev)
+    adj, K_ = face_adjacency(f), int(binned[2].shape[-1])
+    pipes = {"batched": (RenderPipeline(f, adj, (256, 256), boost=3.0,
+                                        cap=cap, prebinned=True, slots_k=K_),
+                         binned, 1),
+             "camera_sequential": (RenderPipelineBig(
+                 f, adj, (256, 256), boost=3.0, cap=cap, slots_k=K_),
+                 binned, 2),
+             "unbinned": (RenderPipeline(f, adj, (256, 256), boost=3.0,
+                                         cap=cap), [], 0),
+             "ablated": (RenderPipeline(
+                 f, adj, (256, 256), boost=3.0, cap=cap, prebinned=True,
+                 slots_k=K_, ablate="scatter"), binned, 0)}
+    for name, (pipe, b, want) in pipes.items():
+        vc = v_ndc.to(dev).clone().requires_grad_(True)
+        img = pipe(vc, attrs, bg, *b)
+        before = K.LAUNCHES["chain_face_rows"]
+        img.sum().backward()
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["chain_face_rows"] == before + want, name
+        assert torch.isfinite(vc.grad).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["fslots_int32", "strided", "mixed_devices",
+                                 "up_rows"])
+def test_gpu_chain_face_rows_rejects(bad):
+    """The wrapper raises on int32 fslots, a strided dslot, tensors on
+    two devices and a split outside the tile rows, and launches nothing."""
+    dev = _card()
+    dslot, dslot_aa, rbb, fslots, TY = _chain_case(1, False, dev)
+    up = TY // 2
+    if bad == "fslots_int32":
+        fslots = fslots.int()
+    elif bad == "strided":
+        dslot = torch.cat([dslot, dslot], dim=-1)[..., :32]
+    elif bad == "mixed_devices":
+        rbb = rbb.cpu()
+    else:
+        up = TY + 1
+    before = K.LAUNCHES["chain_face_rows"]
+    with pytest.raises(ValueError):
+        K.chain_face_rows(dslot, dslot_aa, 3.0, rbb, fslots, up)
+    assert K.LAUNCHES["chain_face_rows"] == before
+
+
 @pytest.mark.gpu
 def test_gpu_host_copy_of_a_step_scalar_does_not_wait():
     """The driver reads a step's displacement through a pinned host copy
@@ -1011,7 +1138,7 @@ def test_gpu_remesh_at_start_matches_cpu():
     launches = dict(K.LAUNCHES)
     card = optimize_shape(scene, params, device=dev)
     assert all(K.LAUNCHES[k] >= launches[k] + params["steps"]
-               for k in launches)
+               for k in K.TILE_KERNELS)
     cpu = optimize_shape(scene, params, device="cpu")
     assert len(card["f"]) == len(cpu["f"]) == 2
     for a, b in zip(card["f"], cpu["f"]):
@@ -1244,7 +1371,7 @@ def test_gpu_two_rank_render():
     img, gv, _ = _gpu_render()
     got = launch(two_rank_render, 2, device="cuda", timeout=240.0)
     for g in got:
-        assert all(g["launches"][k] >= 1 for k in K.LAUNCHES)
+        assert all(g["launches"][k] >= 1 for k in K.TILE_KERNELS)
         assert _max_abs(torch.as_tensor(g["img"]), img.cpu()) < 1e-5
         np.testing.assert_array_equal(g["gv"], got[0]["gv"])
         assert np.abs(g["gv"] - gv).max() <= 1e-4 * np.abs(gv).max()

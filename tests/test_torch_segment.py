@@ -32,7 +32,9 @@ from largesteps_torch.ops.normals import (compute_face_normals,
                                           compute_vertex_normals,
                                           corner_segments)
 from largesteps_torch.ops.segment import Segments, segment_sum
-from largesteps_torch.render.pipeline import (build_incidence, face_sums,
+from largesteps_torch.render import kernels
+from largesteps_torch.render.pipeline import (build_incidence, chain_planes,
+                                              face_sums, first_half,
                                               scatter_via_faces,
                                               slot_face_rows)
 from largesteps_torch.render.raster import rasterize
@@ -164,6 +166,34 @@ def test_face_sums_match_jax(mesh):
     via = slot_face_rows(T(table), T(fslots))
     # (the sentinel rows differ: face_sums puts the empty slots there)
     assert torch.equal(via[:, :F], dface.reshape(C, F + 1, 18)[:, :F])
+
+
+def test_chain_face_rows_on_the_cpu_is_the_composition():
+    """``kernels.chain_face_rows`` on CPU tensors is
+    ``slot_face_rows(chain_planes(...))`` bit for bit, and launches
+    nothing: 1 camera of 128² (4 tile rows, the upper 2 the first half),
+    cap 256, 300 faces of K = 4 slots in tile order with sentinels among
+    them, and a slot with an inf and a NaN column."""
+    rng = np.random.default_rng(7)
+    C, TY, TX, cap, F, K = 1, 4, 1, 256, 300, 4
+    S = TY * TX * cap
+    rand = lambda *shape: T(rng.standard_normal(shape).astype(np.float32))
+    dslot, dslot_aa = rand(C, TY, TX, cap, 32), rand(C, TY, TX, cap, 8)
+    rbb = rand(C, TY, TX, cap, 32)
+    dslot[0, 1, 0, 5, 3], dslot[0, 1, 0, 5, 7] = float("inf"), float("nan")
+    fslots = np.full((C, F + 1, K), S, np.int64)
+    fslots[0, :F] = np.sort(np.stack([rng.choice(S, K, replace=False)
+                                      for _ in range(F)]), axis=1)
+    fslots[0, :F][rng.random((F, K)) < 0.3] = S
+    fslots[0, 0] = [5 + cap, S, 2 * cap + 1, S]     # the inf slot, both halves
+    before = dict(kernels.LAUNCHES)
+    got = kernels.chain_face_rows(dslot, dslot_aa, 3.0, rbb, T(fslots),
+                                  TY // 2)
+    want = slot_face_rows(chain_planes(dslot, dslot_aa, 3.0, rbb),
+                          T(fslots), first_half(TY))
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).all() and got[0, 0].abs().max() > 0
+    assert kernels.LAUNCHES == before
 
 
 def test_dense_raster_backward_matches_jax(mesh):
