@@ -34,7 +34,7 @@ from . import device_name
 __all__ = ["main"]
 
 
-def fids(renderer, st, v_render, bins, counts):
+def fids(renderer, topology, v_render, bins, counts):
     """Face ids (C, H, W) of v_render rasterized on (bins (C, T, cap),
     counts (C, T))."""
     from ..render import kernels
@@ -42,7 +42,7 @@ def fids(renderer, st, v_render, bins, counts):
     from ..render.pipeline import setup_from_bins
     h, w = renderer.res
     ty, tx = h // kernels.TILE_H, w // kernels.TILE_W
-    faces, opp = st.topology.dense_tables(renderer.device)
+    faces, opp = topology.dense_tables(renderer.device)
     v_ndc = project(v_render, renderer.mvps)
     attrs = torch.zeros_like(v_render)
     rfb, _ = setup_from_bins(v_ndc, faces, attrs, opp, bins, h, w)
@@ -56,35 +56,35 @@ def measure(scene, p, dev, steps, max_checks):
     """Run ``steps`` steps of the driver on ``scene`` with params ``p``
     (defaults filled in) on ``dev``; check the first ``max_checks`` steps
     that moved past margin/2.  Returns (check lines, the rebin record)."""
-    from ..driver.optimize_shape import _prepare, _Rebins
+    from ..driver.bins import rebin_record
+    from ..driver.optimize_shape import _prepare
     from ..render.camera import project
     from ..render.pipeline import bin_triangles_device, suggest_cap
     run = _prepare(scene, p, dev)
-    st, renderer, theta = run.st, run.renderer, run.theta
+    rebins, renderer, theta = run.st.bins, run.renderer, run.theta
     half = 0.5 * float(p["rebin_margin"])
-    counts = {}
-    rebins = _Rebins(st, p, renderer, theta, 0, counts)
+    counts = rebin_record()
     v_last, checks = None, []
     for it in range(steps):
-        rebins.before(it, v_last)
+        rebins.before(it, v_last, theta["tr"], counts)
         tr = theta["tr"].detach().clone()
-        bins_used = st.bins
+        bins_used = rebins.tensors
         _, v_last, disp, _ = run.step()
         rebins.after(it, disp)
         d = float(disp)
         if d <= half or len(checks) >= max_checks:
             continue
         with torch.no_grad():
-            v_render = tr + v_last[st.dup_dev]
+            v_render = tr + v_last[rebins.dup_dev]
             _, _, _, occ = bin_triangles_device(
-                project(v_render, renderer.mvps), st.faces_dev,
-                renderer.res, st.bin_cap, margin=float(p["rebin_margin"]))
-            cap = max(st.bin_cap, suggest_cap(int(occ)))
+                project(v_render, renderer.mvps), rebins.faces_dev,
+                renderer.res, rebins.cap, margin=float(p["rebin_margin"]))
+            cap = max(rebins.cap, suggest_cap(int(occ)))
             fb, fc, _, _ = bin_triangles_device(
-                project(v_render, renderer.mvps), st.faces_dev,
+                project(v_render, renderer.mvps), rebins.faces_dev,
                 renderer.res, cap, margin=float(p["rebin_margin"]))
-            stale = fids(renderer, st, v_render, bins_used[0], bins_used[1])
-            fresh = fids(renderer, st, v_render, fb, fc)
+            stale = fids(renderer, rebins.topology, v_render, *bins_used[:2])
+            fresh = fids(renderer, rebins.topology, v_render, fb, fc)
         diff = stale != fresh
         checks.append({
             "step": it, "disp_px": d, "margin_px": p["rebin_margin"],

@@ -11,14 +11,8 @@ either package resumes in the other.
 The renderer takes the tile kernels where the resolution tiles into
 32×128 pixels and the dense rasterizer (``raster_chunk`` faces a step)
 elsewhere.  On the tiles, meshes of ``host_bin_faces`` faces or more take
-the large-F path: bins computed on the host at epoch build with a
-``rebin_margin`` px bbox expansion, recomputed on the device every
-``rebin_every`` steps or as soon as a vertex has moved margin/2 px since
-(``rebin_auto``; the step emits the displacement, which the host reads
-one step late: before step i it waits for the displacements of the steps
-up to i − 2, which have run by then unless the card is two steps behind,
-so the rebins fall on the same steps whatever the host's timing).  At
-most ``max_inflight`` steps are queued on the device.
+the large-F path: precomputed bins, which one :class:`.bins.EpochBins` an
+epoch owns, with their rebin policy.
 
 ``scene`` is a scene dict or the path of a scene XML file.  The optimizer
 is AdamUniform, plain Adam or a callable (see :func:`_make_optimizer`).
@@ -79,7 +73,6 @@ import gc
 import os
 import time
 import warnings
-from collections import deque
 from dataclasses import dataclass
 from typing import Any
 
@@ -105,11 +98,9 @@ from ..parallel import distributed as pdist
 from ..parallel.sharding import gather_images, make_mesh, shard_renderer
 from ..parallel.tri_shard import ShardedCGSolver
 from ..render import kernels as _kernels
-from ..render.camera import project
-from ..render.pipeline import (bin_triangles_device, bin_triangles_host,
-                               suggest_cap)
 from ..render.renderer import Renderer, Topology
 from ..spans import Recorder, setup_span, span as _span
+from .bins import EpochBins, host_bins, rebin_record, takes_bins
 from .checkpoint import load_checkpoint, save_checkpoint, state_from_numpy
 
 __all__ = ["optimize_shape", "default_params"]
@@ -167,38 +158,9 @@ def _sync(dev, site):
     _spans.waited()
 
 
-def _mark(dev):
-    """An event recorded behind the work queued so far on the card (None on
-    the CPU, where work is done when its call returns)."""
-    if dev.type != "cuda":
-        return None
-    e = torch.cuda.Event()
-    e.record()
-    return e
-
-
-def _to_host(t):
-    """A pinned host copy of the device scalar ``t``, queued on the stream
-    without waiting: readable once an event recorded after this call has
-    completed (``t`` itself on the CPU).  ``float()`` of a device tensor
-    would instead wait for every step queued so far."""
-    if t.device.type != "cuda":
-        return t
-    h = torch.empty((), dtype=t.dtype, pin_memory=True)
-    h.copy_(t, non_blocking=True)
-    return h
-
-
 def _allocated(dev):
     """Bytes of tensors allocated on the card (None on the CPU)."""
     return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else None
-
-
-def _wait(event, site):
-    """Wait for ``event`` (None: done already), a host wait at ``site``."""
-    with _span("host_wait", site):
-        if event is not None:
-            event.synchronize()
 
 
 @dataclass
@@ -213,20 +175,12 @@ class _Epoch:
     M: Any = None
     u: Any = None
     solver: Any = None
-    # the large-F path
-    use_host_bins: bool = False
-    bins: Any = None            # (bins (C,T,cap), counts (C,T), fslots
-                                # (C,F+1,K)) on the device
-    bin_cap: int = 0
-    last_sxy: Any = None        # (C,V,2) px positions at the last host rebin
-    max_window_disp: float = 0.0
-    sxy_dev: Any = None         # (C,V,2) px positions at bin time, device
-    dup_dev: Any = None         # duplicate_idx on the device
-    faces_dev: Any = None       # faces on the device, for device rebins
-    device_rebin_ok: bool = False  # spans fit the device binning's (2, 2)
-    pending_occ: Any = None     # (host occupancy, event) of the last device
-                                # rebin
+    bins: EpochBins | None = None  # the large-F path's (None: traced bins)
     occupancy: int = 0          # bin occupancy of v_src at epoch build
+
+    def bin_cap(self, renderer):
+        """The cap of the epoch's bins (on traced bins, the renderer's)."""
+        return renderer.bin_cap if self.bins is None else self.bins.cap
 
 
 def _make_mesh(p):
@@ -264,211 +218,6 @@ def _make_optimizer(name_or_fn, params, lr):
     raise ValueError(f"unknown optimizer {name_or_fn!r}")
 
 
-def _sxy(renderer, v_ndc):
-    """(C, V, 2) pixel positions from NDC (C, V, 4), numpy or torch."""
-    h, w = renderer.res
-    mod = torch if isinstance(v_ndc, torch.Tensor) else np
-    ww = v_ndc[..., 3]
-    safe_w = mod.where(ww == 0, 1.0, ww)
-    return mod.stack([(v_ndc[..., 0] / safe_w + 1.0) * (w / 2.0),
-                      (v_ndc[..., 1] / safe_w + 1.0) * (h / 2.0)], -1)
-
-
-def _host_bins(renderer, v, topology, margin, cap=None, cull=False,
-               return_spans=False):
-    """Host binning of the current geometry: the vertices are projected on
-    the host.  Returns ((bins, counts, fslots) on the device, occupancy,
-    cap, host (C, V, 2) pixel positions[, spans])."""
-    v_host = np.asarray(v, np.float32)
-    mvps = renderer.mvps.cpu().numpy()
-    vh = np.concatenate([v_host, np.ones((v_host.shape[0], 1), np.float32)],
-                        axis=1)
-    v_ndc = np.einsum("cij,vj->cvi", mvps, vh)
-    run = lambda c: bin_triangles_host(v_ndc, topology.faces, renderer.res,
-                                       cap=c, margin=margin, cull=cull,
-                                       return_spans=True, return_slots=True)
-    out = run(cap)
-    if renderer.mesh is not None:
-        # the bins of the rank's views: the occupancy, the cap and the
-        # spans are every rank's, so that all build the same pipes
-        occ, sy, sx = pdist.host_max([out[3], *out[4]], renderer.mesh)
-        if cap is None and suggest_cap(int(occ)) != out[0].shape[-1]:
-            out = run(suggest_cap(int(occ)))
-        out = out[:3] + (int(occ), (int(sy), int(sx)))
-    bins, counts, fslots = out[:3]
-    # the face→slot inverse padded to the device binning's K = 4, so the
-    # pipe's shapes stay when rebins move to the device
-    if fslots.shape[-1] < 4:
-        fslots = np.pad(fslots, ((0, 0), (0, 0), (0, 4 - fslots.shape[-1])),
-                        constant_values=bins.shape[1] * bins.shape[-1])
-    dev = renderer.device
-    up = lambda a, dt: torch.as_tensor(a, device=dev).to(dt)
-    res = ((up(bins, torch.int64), up(counts, torch.int32),
-            up(fslots, torch.int64)), out[3], bins.shape[-1],
-           _sxy(renderer, v_ndc))
-    return res + (out[4],) if return_spans else res
-
-
-def _rebin_device(st, p, renderer, v_render):
-    """Rebin on the device from the (V, 3) device vertices; the occupancy
-    stays on the device until the next rebin reads it."""
-    with torch.no_grad():
-        v_ndc = project(v_render, renderer.mvps)
-        bins, counts, fslots, occ = bin_triangles_device(
-            v_ndc, st.faces_dev, renderer.res, st.bin_cap,
-            margin=float(p["rebin_margin"]), cull=bool(p["cull_backfaces"]))
-        st.bins = (bins, counts, fslots)
-        st.sxy_dev = _sxy(renderer, v_ndc)
-    st.pending_occ = (_to_host(occ), _mark(renderer.device))
-
-
-def _rebin(st, p, renderer, v_render):
-    """Host rebin from (V, 3) host vertices: grows the cap where the bins
-    overflow, and warns where a vertex moved more than margin/2 px since
-    the last host rebin (that window's tiles may have under-drawn)."""
-    margin, cull = p["rebin_margin"], p["cull_backfaces"]
-    bins, occ, cap, sxy = _host_bins(renderer, v_render, st.topology, margin,
-                                     cap=st.bin_cap, cull=cull)
-    if occ > st.bin_cap:                        # overflow: resize (rare)
-        bins, occ, cap, sxy = _host_bins(renderer, v_render, st.topology,
-                                         margin, cull=cull)
-        st.bin_cap = cap
-    if st.bins is not None:
-        # keep K: a smaller one would only rebuild the pipe
-        k_old, k_new = st.bins[2].shape[-1], bins[2].shape[-1]
-        if k_new < k_old and bins[0].shape == st.bins[0].shape:
-            sentinel = bins[0].shape[1] * bins[0].shape[-1]
-            fs = torch.nn.functional.pad(bins[2], (0, k_old - k_new),
-                                         value=sentinel)
-            bins = (bins[0], bins[1], fs)
-    if st.last_sxy is not None and st.last_sxy.shape == sxy.shape:
-        disp = float(np.max(np.abs(sxy - st.last_sxy)))
-        st.max_window_disp = max(st.max_window_disp, disp)
-        if disp > 0.5 * float(margin):
-            warnings.warn(
-                f"vertices moved up to {disp:.2f} px between host rebins "
-                f"(> margin/2 = {0.5 * float(margin):.2f}); the last "
-                f"{p['rebin_every']}-step window may have under-drawn tiles "
-                f"- lower rebin_every or raise rebin_margin")
-    st.last_sxy = sxy
-    st.bins = bins
-    with torch.no_grad():
-        st.sxy_dev = _sxy(renderer, project(torch.as_tensor(
-            np.asarray(v_render, np.float32), device=renderer.device),
-            renderer.mvps))
-
-
-def _rebin_due(st, p, since, disp_q) -> bool:
-    """Whether to rebin now: ``rebin_every`` steps since the last rebin, or
-    (``rebin_auto``) a step moved a vertex more than margin/2 px since the
-    bins were made.  Reads the host copies of the displacements of every
-    queued step but the last, oldest first, waiting for each: a fixed lag
-    of one step, so that the decision does not depend on how far the card
-    has got (reading whichever had run made the rebin steps, and so the
-    fit, vary from run to run), and one that seldom waits."""
-    due = bool(p["rebin_every"]) and since >= int(p["rebin_every"])
-    if not p["rebin_auto"]:
-        return due
-    while len(disp_q) > 1:
-        disp, event = disp_q.popleft()
-        _wait(event, "rebin_due")
-        d = float(disp)
-        st.max_window_disp = max(st.max_window_disp, d)
-        due = due or d > 0.5 * float(p["rebin_margin"])
-    return due
-
-
-def _bins_overflowed(st) -> bool:
-    """Whether the last device rebin's bins overflowed their cap (waiting
-    for its occupancy, queued before the steps since, so that the answer
-    does not depend on the host's timing).  An overflow sends this rebin
-    to the host, which grows the cap."""
-    if st.pending_occ is None:
-        return False
-    _wait(st.pending_occ[1], "overflow")
-    occ = int(st.pending_occ[0])
-    st.pending_occ = None
-    if occ > st.bin_cap:
-        warnings.warn(f"bin occupancy {occ} exceeded cap {st.bin_cap} during "
-                      f"the last window; growing")
-        return True
-    return False
-
-
-class _Rebins:
-    """The large-F path's rebin policy around the step loop (a no-op on
-    other epochs).  :meth:`before` rebins when :func:`_rebin_due` says so:
-    on the device, or on the host where the tile spans do not fit the
-    device binning or the last device rebin overflowed.  On a mesh the
-    ranks decide together: a rank's due step or overflow, read from its own
-    events, is every rank's (one host reduction a step).  :meth:`after`
-    queues the step's displacement as a host copy with an event, and keeps
-    at most ``max_inflight`` steps queued.  ``prof`` gains ``rebin_s``,
-    ``rebin_n``, ``rebin_steps`` and ``rebin_routes``, the rebins by route:
-    ``device``, ``host_spans`` (the tile spans do not fit the device
-    binning) and ``host_overflow`` (the last device rebin overflowed its
-    cap)."""
-
-    def __init__(self, st, p, renderer, theta, start_it, prof):
-        self.st, self.p, self.renderer, self.theta = st, p, renderer, theta
-        self.start_it = self.last_it = start_it
-        self.prof = prof
-        prof.setdefault("rebin_s", 0.0)
-        prof.setdefault("rebin_n", 0)
-        prof.setdefault("rebin_steps", [])
-        prof.setdefault("rebin_routes", {"device": 0, "host_spans": 0,
-                                         "host_overflow": 0})
-        self.disp_q = deque()       # (host displacement, event) a step
-        self.inflight = deque()     # (step, event) of the queued steps
-
-    def before(self, it, v_last):
-        st, p, theta = self.st, self.p, self.theta
-        mesh = self.renderer.mesh
-        if not (st.use_host_bins and it > self.start_it):
-            return
-        due = _rebin_due(st, p, it - self.last_it, self.disp_q)
-        if mesh is not None:
-            due = pdist.host_max([due], mesh)[0] > 0
-        if not due:
-            return
-        t0 = time.perf_counter()
-        with _span("rebin"):
-            tr = theta["tr"].detach() if p["use_tr"] \
-                else torch.zeros_like(theta["tr"])
-            on_device = st.device_rebin_ok and not _bins_overflowed(st)
-            if mesh is not None:
-                on_device = pdist.host_max([not on_device], mesh)[0] == 0
-            if on_device:
-                _rebin_device(st, p, self.renderer, v_last[st.dup_dev] + tr)
-            else:
-                with _span("host_wait", "host_rebin"):
-                    v_host = (v_last.cpu()[st.dup_dev.cpu()]
-                              + tr.cpu()).numpy()
-                _spans.waited()
-                _rebin(st, p, self.renderer, v_host)
-                st.pending_occ = None
-        route = "device" if on_device else \
-            "host_overflow" if st.device_rebin_ok else "host_spans"
-        self.prof["rebin_routes"][route] += 1
-        self.last_it = it
-        self.disp_q.clear()
-        self.prof["rebin_s"] += time.perf_counter() - t0
-        self.prof["rebin_n"] += 1
-        self.prof["rebin_steps"].append(it)
-
-    def after(self, it, disp):
-        if not self.st.use_host_bins:
-            return
-        disp = _to_host(disp)
-        event = _mark(self.renderer.device)
-        self.disp_q.append((disp, event))
-        self.inflight.append((it, event))
-        if len(self.inflight) > int(self.p["max_inflight"]):
-            done, event = self.inflight.popleft()
-            _wait(event, "inflight")
-            _spans.waited(done)
-
-
 def _build_epoch(v_src, f_src, p, renderer, device, setup):
     """The epoch of (v_src, f_src); ``setup`` gains the seconds of its
     topology (``topology_s``, span ``setup.topology``: duplicates,
@@ -485,28 +234,10 @@ def _build_epoch(v_src, f_src, p, renderer, device, setup):
         _sync(device, "setup")
     setup["topology_s"] = sp.seconds
     with setup_span("setup.bins") as sp:
-        st.use_host_bins = (renderer.backend == "tiles" and
-                            st.topology.n_faces >= int(p["host_bin_faces"]))
-        if st.use_host_bins:
-            margin, cull = p["rebin_margin"], p["cull_backfaces"]
-            st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
-                renderer, v_src, st.topology, margin,
-                cap=p["host_bin_cap"], cull=cull, return_spans=True)
-            if occ > st.bin_cap:      # the configured cap is too small
-                st.bins, occ, st.bin_cap, st.last_sxy, spans = _host_bins(
-                    renderer, v_src, st.topology, margin, cull=cull,
-                    return_spans=True)
-            st.occupancy = int(occ)
-            # mid-run rebins run on the device when the tile spans fit its
-            # static (2, 2) bound
-            st.device_rebin_ok = spans[0] <= 2 and spans[1] <= 2
-            st.dup_dev = torch.as_tensor(duplicate_idx.astype(np.int64),
-                                         device=device)
-            st.faces_dev = torch.as_tensor(
-                st.topology.faces.astype(np.int64), device=device)
-            with torch.no_grad():
-                st.sxy_dev = _sxy(renderer, project(torch.as_tensor(
-                    v_src, device=device), renderer.mvps))
+        if takes_bins(renderer, st.topology, p):
+            st.bins = EpochBins(renderer, p, v_src, st.topology,
+                                duplicate_idx)
+            st.occupancy = st.bins.occupancy
         else:
             # size the bins before the first render: an overflowing bin
             # under-draws its tile with no signal (a no-op on the dense
@@ -553,7 +284,7 @@ def _graph_reason(st, p, renderer, dev):
         return "sharded"
     if renderer.backend != "tiles":
         return "dense"
-    if st.use_host_bins:
+    if st.bins is not None:
         return "host_bins"
     tier = getattr(st.solver, "tier", None) if p["smooth"] else None
     if tier == "host":
@@ -682,8 +413,8 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer, graph):
             tr = theta["tr"] if p["use_tr"] \
                 else torch.zeros_like(theta["tr"])
             v_render = tr + v_unique[dup]
-            imgs = renderer.render(v_render, n_opt, st.topology,
-                                   bins=st.bins if st.use_host_bins else None)
+            imgs = renderer.render(v_render, n_opt, st.topology, bins=None
+                                   if st.bins is None else st.bins.tensors)
         with _span("loss"):
             diff = imgs - ref_imgs
             err = diff.abs() if l1 else diff.square()
@@ -725,12 +456,7 @@ def _make_step(st: _Epoch, p, renderer, ref_imgs, theta, optimizer, graph):
             guess["fwd"] = v_unique.detach()
             guess["bwd"] = theta["u"].grad
         update()
-        disp = zero
-        if st.use_host_bins:
-            with _span("displacement"), torch.no_grad():
-                sxy = _sxy(renderer, project(v_render.detach(),
-                                             renderer.mvps))
-                disp = (sxy - st.sxy_dev).abs().max()
+        disp = zero if st.bins is None else st.bins.displacement(v_render)
         return logged, v_out(v_unique), disp, iters
 
     reason = _graph_reason(st, p, renderer, dev)
@@ -791,16 +517,16 @@ def _solver_info(st):
     return info
 
 
-def _pipe(renderer, st, cap):
+def _pipe(renderer, st):
     """Which render path the epoch takes: ``dense``, ``traced`` (tile
     bins made each step) or, on precomputed bins, ``batched`` or
     ``camera_sequential``."""
     if renderer.backend == "dense":
         return "dense"
-    if not st.use_host_bins:
+    if st.bins is None:
         return "traced"
     return "camera_sequential" if renderer.camera_sequential(
-        cap, st.topology.n_faces) else "batched"
+        st.bin_cap(renderer), st.topology.n_faces) else "batched"
 
 
 def _remesh_schedule(p, resume, start_it):
@@ -886,10 +612,9 @@ def _prepare(scene, p, dev) -> _Run:
             shard_renderer(renderer, mesh)
         ref_topo = Topology(f_ref)
         with setup_span("setup.reference") as sp:
-            if renderer.backend == "tiles" \
-                    and ref_topo.n_faces >= int(p["host_bin_faces"]):
-                ref_bins = _host_bins(renderer, v_ref.cpu().numpy(),
-                                      ref_topo, 0.0)[0]
+            if takes_bins(renderer, ref_topo, p):
+                ref_bins = host_bins(renderer, v_ref.cpu().numpy(),
+                                     ref_topo, 0.0)[0]
                 ref_imgs = renderer.render(v_ref, n_ref, ref_topo,
                                            bins=ref_bins)
                 del ref_bins
@@ -911,12 +636,8 @@ def _prepare(scene, p, dev) -> _Run:
                                 step_size)
     if resume is not None:
         load_moments(optimizer)
-        if st.use_host_bins:
-            # the epoch's bins are of v_src; the restored vertices may be
-            # far from it, so bin them before the first step
-            v = _solved(st, theta, p).cpu().numpy()[st.duplicate_idx]
-            tr = theta["tr"].detach().cpu().numpy() if p["use_tr"] else 0.0
-            _rebin(st, p, renderer, v + tr)
+        if st.bins is not None:
+            st.bins.resume(_solved(st, theta, p), theta["tr"])
     graph = _graph_stats()
     step = _make_step(st, p, renderer, ref_imgs, theta, optimizer, graph)
     return _Run(st=st, renderer=renderer, ref_imgs=ref_imgs,
@@ -982,7 +703,7 @@ def _optimize(scene, p, dev, rec):
     result = {"vert_steps": [], "tr_steps": [], "f": [f_src.copy()],
               "losses": [], "im_ref": im_ref,
               "v_ref": run.v_ref.cpu().numpy(), "f_ref": run.f_ref.copy()}
-    prof = {"first_step_s": 0.0, "rebin_s": 0.0, "rebin_n": 0,
+    prof = {"first_step_s": 0.0, **rebin_record(),
             "setup_s": time.perf_counter() - t_setup0, **run.setup,
             "remeshes": [], "graph": run.graph}
     if mesh is not None:
@@ -1006,7 +727,6 @@ def _optimize(scene, p, dev, rec):
         _spans.waited()
 
     it = start_it
-    rebins = _Rebins(st, p, renderer, theta, start_it, prof)
     v_last = None               # solved vertices of the last step
     loss_log = []
     iter_log = []               # an iterative solver's counts a step
@@ -1032,10 +752,10 @@ def _optimize(scene, p, dev, rec):
                 v_src, f_src, event = _remesh(st, theta, p, it)
                 tr = theta["tr"].detach().clone()
                 event["allocated_before"] = _allocated(dev)
-                # free the old epoch before building the new one: its bins,
-                # pipes (Topology), solver factor, the step's closure and
-                # CUDA graph, the rebin queues and the optimizer's moments
-                st = theta = optimizer = step = rebins = v_last = None
+                # free the old epoch before building the new one: its bins
+                # and their queues, pipes (Topology), solver factor, the
+                # step's closure and CUDA graph and the optimizer's moments
+                st = theta = optimizer = step = v_last = None
                 losses = None       # on the graph path, the graph's outputs
                 gc.collect()
                 if dev.type == "cuda":
@@ -1050,21 +770,21 @@ def _optimize(scene, p, dev, rec):
                     p["optimizer"], [theta["tr"], theta["u"]], step_size)
                 step = _make_step(st, p, renderer, ref_imgs, theta,
                                   optimizer, prof["graph"])
-                rebins = _Rebins(st, p, renderer, theta, it, prof)
-            cap = st.bin_cap if st.use_host_bins else renderer.bin_cap
             event.update(
                 setup=setup, solver=_solver_info(st),
-                use_host_bins=st.use_host_bins, occupancy=st.occupancy,
-                bin_cap=cap, pipe=_pipe(renderer, st, cap),
+                use_host_bins=st.bins is not None, occupancy=st.occupancy,
+                bin_cap=st.bin_cap(renderer), pipe=_pipe(renderer, st),
                 step_size=step_size, wall_at=t_rm - t0,
                 seconds=time.perf_counter() - t_rm)
             prof["remeshes"].append(event)
             remesh_it = remesh_schedule.pop(0) if remesh_schedule else -1
-        rebins.before(it, v_last)
+        if st.bins is not None:
+            st.bins.before(it, v_last, theta["tr"], prof)
         t_st = time.perf_counter()
         with _span("step"):
             losses, v_last, disp, iters = step()
-        rebins.after(it, disp)
+        if st.bins is not None:
+            st.bins.after(it, disp)
         if it == start_it:
             _sync(dev, "first_step")
             prof["first_step_s"] = time.perf_counter() - t_st
@@ -1107,8 +827,8 @@ def _optimize(scene, p, dev, rec):
     result["tr"] = theta["tr"].detach().cpu().numpy()
     result["iters"] = it
     result["wall_time"] = t - t0
-    prof["max_window_disp_px"] = st.max_window_disp
-    prof["bin_cap"] = st.bin_cap if st.use_host_bins else renderer.bin_cap
+    prof["max_window_disp_px"] = getattr(st.bins, "max_window_disp", 0.0)
+    prof["bin_cap"] = st.bin_cap(renderer)
     prof["backend"] = renderer.backend
     prof["raster_chunk"] = renderer.chunk
     if st.solver is not None:

@@ -47,8 +47,8 @@ from ..spans import span as _span
 
 __all__ = ["triangle_setup", "bin_triangles", "setup_and_bin",
            "setup_from_bins", "bin_triangles_host", "bin_triangles_device",
-           "chain_planes", "build_incidence", "face_ids", "first_half",
-           "face_sums", "scatter_via_faces", "slot_face_rows",
+           "DEVICE_BIN_SPAN", "chain_planes", "build_incidence", "face_ids",
+           "first_half", "face_sums", "scatter_via_faces", "slot_face_rows",
            "scatter_via_slots", "suggest_cap", "check_bin_overflow",
            "RenderPipeline", "RenderPipelineBig", "ABLATE"]
 
@@ -373,8 +373,12 @@ def bin_triangles_host(v_ndc, faces, resolution, cap=None, margin=0.0,
     return out
 
 
+# the device binning's static bound on the tiles (y, x) a face spans
+DEVICE_BIN_SPAN = (2, 2)
+
+
 def bin_triangles_device(v_ndc, faces, resolution, cap, margin=0.0,
-                         span=(2, 2), cull=False):
+                         span=DEVICE_BIN_SPAN, cull=False):
     """Device binning of all cameras: the large-F path's mid-run rebins.
 
     Each face emits ``span_y·span_x`` candidate entries, one per cell of its

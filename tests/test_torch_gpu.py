@@ -847,13 +847,12 @@ def test_gpu_host_copy_of_a_step_scalar_does_not_wait():
     """The driver reads a step's displacement through a pinned host copy
     queued behind the step: taking the copy returns while the card is still
     busy, and the copy holds the value once the event after it completes."""
-    from largesteps_torch.driver.optimize_shape import _mark, _to_host
+    from largesteps_torch.driver.bins import _queued
     _card()
     t = torch.tensor(3.5, device="cuda")
     torch.cuda.synchronize()
     torch.cuda._sleep(1 << 30)              # about half a second of work
-    h = _to_host(t * 2.0)
-    event = _mark(t.device)
+    h, event = _queued(t * 2.0)
     assert not event.query()                # the host did not wait
     assert h.device.type == "cpu" and h.is_pinned()
     event.synchronize()

@@ -103,21 +103,19 @@ def test_host_bin_checkpoint_resumes_across_packages(driver_scene, jax_runs):
 
 @pytest.mark.parametrize("disps,due", [([1.0, 1.0, 5.0], False),
                                         ([1.0, 5.0, 1.0], True)])
-def test_rebin_due_lags_one_step(disps, due):
+def test_rebin_due_lags_one_step(driver_scene, disps, due):
     """The auto rule reads the displacement of every queued step but the
     last (margin 4 px: due past 2 px), whether or not that step has run,
     so that the rebin steps do not depend on the host's timing; the last
     step's waits in the queue for the next decision."""
-    from collections import deque
-    from types import SimpleNamespace
     drv = importlib.import_module("largesteps_torch.driver.optimize_shape")
-    p = {**drv.default_params(), "rebin_every": 0, "rebin_auto": True,
-         "rebin_margin": 4.0}
-    st = SimpleNamespace(max_window_disp=0.0)
-    q = deque((torch.tensor(d), None) for d in disps)
-    assert drv._rebin_due(st, p, len(disps), q) == due
-    assert [float(d) for d, _ in q] == disps[-1:]
-    assert st.max_window_disp == max(disps[:-1])
+    p = {**drv.default_params(), **DRIVER, "host_bin_faces": 1,
+         "rebin_every": 0, "rebin_auto": True, "rebin_margin": 4.0}
+    bins = drv._prepare(driver_scene, p, torch.device("cpu")).st.bins
+    bins.disp_q.extend((torch.tensor(d), None) for d in disps)
+    assert bins.due(len(disps)) == due
+    assert [float(d) for d, _ in bins.disp_q] == disps[-1:]
+    assert bins.max_window_disp == max(disps[:-1])
 
 
 def test_rebin_grows_cap_on_overflow(driver_scene):
@@ -126,17 +124,40 @@ def test_rebin_grows_cap_on_overflow(driver_scene):
     drv = importlib.import_module("largesteps_torch.driver.optimize_shape")
     p = {**drv.default_params(), **DRIVER, **HOST}
     run = drv._prepare(driver_scene, p, torch.device("cpu"))
-    st = run.st
-    assert st.use_host_bins and st.device_rebin_ok
-    assert not drv._bins_overflowed(st)            # nothing pending
-    st.pending_occ = (torch.tensor(st.bin_cap), None)
-    assert not drv._bins_overflowed(st) and st.pending_occ is None
-    st.pending_occ = (torch.tensor(st.bin_cap + 1), None)
+    st, bins = run.st, run.st.bins
+    assert bins is not None and bins.device_ok
+    assert not bins.overflowed()                   # nothing pending
+    bins.pending_occ = (torch.tensor(bins.cap), None)
+    assert not bins.overflowed() and bins.pending_occ is None
+    bins.pending_occ = (torch.tensor(bins.cap + 1), None)
     with pytest.warns(UserWarning, match="growing"):
-        assert drv._bins_overflowed(st)
-    fit, K = st.bin_cap, st.bins[2].shape[-1]
-    st.bin_cap = 32
-    drv._rebin(st, p, run.renderer, st.v_unique[st.duplicate_idx])
-    assert st.bin_cap == fit and st.bins[0].shape[-1] == fit
-    assert st.bins[2].shape[-1] == K
-    assert int(st.bins[1].max()) <= fit
+        assert bins.overflowed()
+    fit, K = bins.cap, bins.tensors[2].shape[-1]
+    bins.cap = 32
+    bins.rebin_host(st.v_unique[st.duplicate_idx])
+    assert bins.cap == fit and bins.tensors[0].shape[-1] == fit
+    assert bins.tensors[2].shape[-1] == K
+    assert int(bins.tensors[1].max()) <= fit
+
+
+def test_host_bins_retry_once_at_the_cap_that_fits(driver_scene):
+    """Host bins asked at a cap they overflow come at the cap that fits,
+    the bins made with no cap; a wider face→slot width is kept only where
+    the bins keep the cap asked for, and the inverse is padded with its
+    sentinel T·cap."""
+    from largesteps_torch.driver.bins import K, host_bins
+    drv = importlib.import_module("largesteps_torch.driver.optimize_shape")
+    run = drv._prepare(driver_scene, {**drv.default_params(), **DRIVER,
+                                      **HOST}, torch.device("cpu"))
+    st, r = run.st, run.renderer
+    v = st.v_unique[st.duplicate_idx]
+    fit, occ, cap, sxy, spans = host_bins(r, v, st.topology, 4.0)
+    assert occ > 8 and fit[2].shape[-1] == K
+    small = host_bins(r, v, st.topology, 4.0, cap=8, k=K + 2)
+    assert small[1:3] == (occ, cap) and small[4] == spans
+    np.testing.assert_array_equal(small[3], sxy)
+    assert all(torch.equal(a, b) for a, b in zip(small[0], fit))
+    kept = host_bins(r, v, st.topology, 4.0, cap=cap, k=K + 2)[0]
+    assert kept[2].shape[-1] == K + 2
+    assert torch.equal(kept[2][..., :K], fit[2])
+    assert bool((kept[2][..., K:] == fit[0].shape[1] * cap).all())

@@ -168,7 +168,9 @@ def test_resume_at_a_scheduled_remesh(scene, tmp_path):
 
 def test_old_epoch_freed_before_the_new_one(scene, monkeypatch):
     """Nothing of the old epoch (its state, topology and pipes, solver,
-    parameters) is alive when the new epoch is built."""
+    parameters, and on the large-F path its bins' owner with its bins and
+    queues) is alive when the new epoch is built: on the dense renderer,
+    and on the tiles with host bins."""
     build = drv_mod._build_epoch
     refs = []
 
@@ -181,12 +183,22 @@ def test_old_epoch_freed_before_the_new_one(scene, monkeypatch):
                      ("solver", weakref.ref(st.solver)),
                      ("structure", weakref.ref(st.M.structure)),
                      ("u", weakref.ref(st.u))])
+        if st.bins is not None:
+            refs.extend([("bins", weakref.ref(st.bins)),
+                         ("fslots", weakref.ref(st.bins.tensors[2])),
+                         ("queue", weakref.ref(st.bins.disp_q))])
         return st
 
     monkeypatch.setattr(drv_mod, "_build_epoch", tracked)
     res = optimize_shape(scene, {**SMOOTH, "steps": 4, "remesh": [1, 2]},
                          device="cpu")
     assert len(res["f"]) == 3
+    refs.clear()
+    tiles = {**scene, "res_y": 64, "res_x": 128}
+    res = optimize_shape(tiles, {**SMOOTH, "steps": 4, "remesh": [1, 2],
+                                 "host_bin_faces": 1}, device="cpu")
+    assert len(res["f"]) == 3
+    assert [e["use_host_bins"] for e in res["prof"]["remeshes"]] == [True] * 2
 
 
 def test_sharding_still_raises(scene):

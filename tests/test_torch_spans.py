@@ -18,7 +18,7 @@ import torch
 from largesteps_torch import spans
 from largesteps_torch.core.banded import BandedSolver
 from largesteps_torch.core.geometry import compute_matrix
-from largesteps_torch.driver import optimize_shape
+from largesteps_torch.driver import bins as bins_mod, optimize_shape
 from largesteps_torch.io.synth import make_scene
 from largesteps_torch.ops.mesh import remove_duplicates
 
@@ -158,16 +158,17 @@ def test_rebin_routes_count_each_rebin(scene, runs):
         assert routes["device"] == 2
     p = {**drv.default_params(), **PARAMS, "rebin_every": 1}
     run = drv._prepare(scene, p, torch.device("cpu"))
-    st, prof = run.st, {}
-    rebins = drv._Rebins(st, p, run.renderer, run.theta, 0, prof)
+    st, prof, tr = run.st, bins_mod.rebin_record(), run.theta["tr"]
+    rebins = st.bins
     v = drv._solved(st, run.theta, p)
-    st.pending_occ = (torch.tensor(st.bin_cap + 1), None)
+    rebins.before(0, v, tr, prof)                   # the epoch's first step
+    rebins.pending_occ = (torch.tensor(rebins.cap + 1), None)
     with pytest.warns(UserWarning, match="growing"):
-        rebins.before(1, v)
-    st.device_rebin_ok = False
-    rebins.before(2, v)
-    st.device_rebin_ok = True
-    rebins.before(3, v)
+        rebins.before(1, v, tr, prof)
+    rebins.device_ok = False
+    rebins.before(2, v, tr, prof)
+    rebins.device_ok = True
+    rebins.before(3, v, tr, prof)
     assert prof["rebin_routes"] == {"device": 1, "host_spans": 1,
                                     "host_overflow": 1}
     assert prof["rebin_n"] == 3

@@ -49,7 +49,7 @@ def scene():
 
 def _epoch(host_bins=False, tier="dense_inv", mesh=None, backend="tiles",
            smooth=True):
-    st = SimpleNamespace(use_host_bins=host_bins,
+    st = SimpleNamespace(bins=object() if host_bins else None,
                          solver=None if tier is None
                          else SimpleNamespace(tier=tier))
     renderer = SimpleNamespace(mesh=mesh, backend=backend)
