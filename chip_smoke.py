@@ -413,9 +413,10 @@ def large_f_inputs():
         n = compute_vertex_normals(v, f, compute_face_normals(v, f))
         faces = up(f.astype(np.int64))
         opp = up(topo.opp.astype(np.int64))
-        rfb, rbb = setup_from_bins(project(v, r.mvps), faces,
-                                   sh_eval(r.sh_M, n) / np.pi, opp,
-                                   up(bins).long(), *res)
+        setup = {"v_clip": project(v, r.mvps), "faces": faces,
+                 "attrs": sh_eval(r.sh_M, n) / np.pi, "opp": opp,
+                 "bins": up(bins).long()}
+        rfb, rbb = setup_from_bins(*setup.values(), *res)
     C, TY, TX = len(r.view_mats), res[0] // K.TILE_H, res[1] // K.TILE_W
     rfb = rfb.reshape(C, TY, TX, cap, 32)
     rbb = rbb.reshape(C, TY, TX, cap, 32)
@@ -433,7 +434,7 @@ def large_f_inputs():
             "counts": counts, "fid": fid, "z": z, "slot": slot,
             "comp": comp, "d_out": d_out, "d_col": d_col,
             "n_faces": f.shape[0], "fslots": up(fslots).long(),
-            "boost": r.boost}
+            "boost": r.boost, "setup": setup}
 
 
 def check_kernels(m, card, phase, reps, plain_reps):
@@ -661,12 +662,14 @@ def check_banded_sweep(card, ptxas):
 def phase_large_f_kernels(card, ptxas):
     """Each kernel against its plain version at the large-F run's shapes:
     13 views of nefertiti through the epoch's host bins (the plain versions
-    timed on the one call compared), and the backward glue kernel (row 8)."""
+    timed on the one call compared), the backward glue kernel (row 8) and
+    the forward setup kernel (row 9)."""
     m = large_f_inputs()
     ok, table = check_kernels(m, card, "large_f_kernel", 10, 0)
     TWICE["large_f"] = launched_twice(m)
     chain_ok, table["chain_face_rows"] = check_chain_face_rows(m, card, ptxas)
-    ok = ok and chain_ok
+    setup_ok, table["setup_slots"] = check_setup_slots(m, card, ptxas)
+    ok = ok and chain_ok and setup_ok
     for row in table.values():
         row["cap"] = m["cap"]
     del m
@@ -732,6 +735,62 @@ def check_chain_face_rows(m, card, ptxas):
           "tolerance": "the plain route's bits on the card",
           "twice_bit_equal": TWICE["chain_face_rows"], "card": card})
     del dslot, dslot_aa, got, again, want
+    return passed, row
+
+
+def check_setup_slots(m, card, ptxas):
+    """Row 9: the prebinned pipe's forward setup kernel at the large-F run's
+    shapes (13 views of nefertiti, the epoch's host bins, the first
+    forward's clip-space corners and shading attributes): the bits of its
+    plain route on the card, ``setup_slots_plain`` (int32 views of rfb and
+    rbb; timed as ``plain_ms``), two launches the same bits, its time by
+    CUDA events and by ``torch.profiler``, and its byte bound: the two
+    binned tables written once, plus the bins, v_clip, faces, attrs and opp
+    each read once."""
+    from largesteps_torch.render import kernels as K
+    args = (*m["setup"].values(), *m["res"])
+    bins = m["setup"]["bins"]
+    kern = lambda: K.setup_slots(*args)
+    plain = lambda: K.setup_slots_plain(*args)
+
+    def same(a, b):
+        return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                   for x, y in zip(a, b))
+
+    got, again = kern(), kern()
+    want = plain()
+    torch.cuda.synchronize()
+    bit_equal = same(got, want)
+    TWICE["setup_slots"] = same(got, again)
+    live = int((bins >= 0).sum())
+    del got, again, want
+    passed = bit_equal and TWICE["setup_slots"] and live > 0
+    C, T, cap = bins.shape
+    written = 2 * C * T * cap * 32 * F32
+    read = nbytes(*m["setup"].values())
+    ms = time_ms(kern, 20)
+    dev_ms = device_ms(kern, 10)
+    plain_ms = time_ms(plain, 3, warm=1)
+    plain_dev_ms = device_ms(plain, 3)
+    row = {"name": "setup_slots", "route": "cuda",
+           "source": "largesteps_torch/csrc/setup_slots.cu",
+           "replaces": "none: largesteps_tpu/render/pallas_core.py:245 "
+                       "(setup_from_bins; XLA glue)",
+           "launches": None, "bit_equal": bit_equal, "ms": ms,
+           "device_ms": dev_ms, "plain_ms": plain_ms,
+           "plain_device_ms": plain_dev_ms,
+           "bound_ms": (written + read) / PEAK_BYTES * 1e3,
+           "bound_ms_written": written / PEAK_BYTES * 1e3,
+           "bound_by": "bytes", "live_slots": live,
+           "shape": {"C": C, "T": T, "cap": cap,
+                     "F": int(m["setup"]["faces"].shape[0]),
+                     "bins": str(bins.dtype)},
+           "ptxas": ran(ptxas["setup_slots"], "setup_slots")}
+    emit({"phase": "large_f_kernel", "name": "setup_slots",
+          "passed": passed, **{k: v for k, v in row.items()
+                               if k not in ("route", "source", "launches")},
+          "tolerance": "the plain route's bits on the card",
+          "twice_bit_equal": TWICE["setup_slots"], "card": card})
     return passed, row
 
 
@@ -2284,11 +2343,13 @@ def phase_determinism(card):
               and all(k is not None and k["raster_bwd"] and k["aa_bwd"]
                       for k in kernels.values())
               and TWICE.get("banded_sweep") is True
-              and TWICE.get("chain_face_rows") is True)
+              and TWICE.get("chain_face_rows") is True
+              and TWICE.get("setup_slots") is True)
     emit({"phase": "determinism", "passed": passed, "runs": pairs,
           "kernels_twice": kernels,
           "banded_sweep_twice": TWICE.get("banded_sweep"),
           "chain_face_rows_twice": TWICE.get("chain_face_rows"),
+          "setup_slots_twice": TWICE.get("setup_slots"),
           "card": card})
     return passed
 
@@ -2671,6 +2732,10 @@ def main():
     # its launches are the large-F run's, one a step
     chain = f_table.pop("chain_face_rows")
     chain["large_f_launches"] = f_launches.pop("chain_face_rows")
+    # row 9 runs on the prebinned pipes alone: one launch a forward of the
+    # batched pipe
+    setup = f_table.pop("setup_slots")
+    setup["large_f_launches"] = f_launches.pop("setup_slots")
     for k, row in table.items():
         row["launches"] = launches[k]
         big = f_table[k]
@@ -2695,7 +2760,7 @@ def main():
         for r in (row, *row["other_shapes"]):
             r["ptxas"] = ran(ptxas[k], micro_instance(k, r["launch"]))
     emit({"kernels": list(table.values()) + list(p_table.values())
-          + [sweep, chain]})
+          + [sweep, chain, setup]})
     print(line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -80,9 +80,14 @@ _SIGNATURES = {
     # up_rows, boost, stream)
     "ls_chain_face_rows": ([_P] * 5 + [_I, _I, _I, ctypes.c_longlong,
                                        ctypes.c_longlong, _I, _F, _P], _I),
+    # the prebinned pipe's forward setup (render/kernels.py:setup_slots):
+    # (v_clip, faces, attrs, opp, bins, rfb or null, rbb, C, T, cap, V, F,
+    # the bins' three strides, bins64, height / 2, stream)
+    "ls_setup_slots": ([_P] * 7 + [_I, _I, _I] + [ctypes.c_longlong] * 5
+                       + [_I, _F, _P], _I),
 }
 _KERNELS = ("raster_fwd", "raster_bwd", "aa_fwd", "aa_bwd", "onehot_scatter",
-            "probe_tile", "banded_sweep", "chain_face_rows")
+            "probe_tile", "banded_sweep", "chain_face_rows", "setup_slots")
 
 _lock = threading.Lock()
 _handles: dict = {}

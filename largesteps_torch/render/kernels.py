@@ -1,5 +1,5 @@
 """The four per-tile kernels of the render pipeline and the prebinned pipe's
-backward glue, each beside its plain PyTorch version.
+forward setup and backward glue, each beside its plain PyTorch version.
 
 ===============  ==========================================  ========================
 wrapper          replaces (``largesteps_tpu/render/...``)    CUDA source
@@ -10,6 +10,8 @@ raster_bwd       ``pallas_core.py:raster_bwd_pallas``        ``csrc/raster_bwd.c
 aa_bwd           ``pallas_core.py:aa_bwd_pallas``            ``csrc/aa_bwd.cu``
 chain_face_rows  no Pallas kernel: ``pallas_core.py``'s       ``csrc/chain_face_rows.cu``
                  ``_chain_planes`` and ``_scatter_via_slots``
+setup_slots      no Pallas kernel: ``pallas_core.py``'s       ``csrc/setup_slots.cu``
+                 ``setup_from_bins``
 ===============  ==========================================  ========================
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor goes to
@@ -46,7 +48,8 @@ import torch
 __all__ = ["raster_fwd", "raster_fwd_plain", "raster_bwd",
            "raster_bwd_plain", "aa_fwd", "aa_fwd_plain", "aa_bwd",
            "aa_bwd_plain", "chain_face_rows", "chain_face_rows_plain",
-           "LAUNCHES", "TILE_KERNELS", "TILE_H", "TILE_W", "BIG"]
+           "setup_slots", "setup_slots_plain", "LAUNCHES", "TILE_KERNELS",
+           "TILE_H", "TILE_W", "BIG"]
 
 BIG = 3.4e38
 TILE_H = 32
@@ -55,7 +58,8 @@ _P = TILE_H * TILE_W
 _CHUNK = 16            # bin slots per step of the plain versions' loops
 
 TILE_KERNELS = ("raster_fwd", "aa_fwd", "raster_bwd", "aa_bwd")
-LAUNCHES = {**dict.fromkeys(TILE_KERNELS, 0), "chain_face_rows": 0}
+LAUNCHES = {**dict.fromkeys(TILE_KERNELS, 0), "chain_face_rows": 0,
+            "setup_slots": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -733,3 +737,88 @@ def chain_face_rows_plain(dslot, dslot_aa, boost, rbb, fslots, up_rows):
     upper = torch.arange(dslot.shape[1], device=dslot.device) < up_rows
     return slot_face_rows(chain_planes(dslot, dslot_aa, boost, rbb), fslots,
                           upper)
+
+
+# ---------------------------------------------------------------------------
+# 6. the prebinned pipe's forward setup: each slot's two record rows
+# ---------------------------------------------------------------------------
+
+def setup_slots(v_clip, faces, attrs, opp, bins, height, width,
+                need_fwd=True):
+    """The binned records (rfb, rbb), each (C, T, cap, 32), of faces
+    ``bins`` (C, T, cap) (−1 = dead slot) in the cameras of v_clip
+    (C, V, 4): :func:`~largesteps_torch.render.pipeline.setup_from_bins`.
+    rfb is None with ``need_fwd=False``.
+
+    A CUDA tensor goes to the kernel: one launch, counted in ``LAUNCHES``,
+    which computes each slot's rows from its face and writes them once (no
+    face-major record, stack, cat or gather), the bits of
+    :func:`setup_slots_plain` on the card.  It takes faces and opp (F, 3)
+    int64, attrs (V, 3) float32 and bins int32 or int64 with any strides (a
+    row shard's slice of whole-image bins).  A CPU tensor goes to
+    :func:`setup_slots_plain`."""
+    if _device_kind(v_clip, faces, attrs, opp, bins) == "cpu":
+        return setup_slots_plain(v_clip, faces, attrs, opp, bins, height,
+                                 width, need_fwd)
+    from .. import _cuda
+    _check_cuda_inputs("setup_slots", v_clip=v_clip, attrs=attrs)
+    for arg, t in (("faces", faces), ("opp", opp)):
+        if t.dtype != torch.int64 or not t.is_contiguous():
+            raise ValueError(f"setup_slots: {arg} must be a contiguous "
+                             f"torch.int64 tensor, got {t.dtype}"
+                             f"{'' if t.is_contiguous() else ' (strided)'}")
+    if bins.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"setup_slots: bins must be int32 or int64, got "
+                         f"{bins.dtype}")
+    _check_aligned("setup_slots", v_clip)
+    if (v_clip.dim() != 3 or v_clip.shape[2] != 4 or faces.dim() != 2
+            or faces.shape[1] != 3 or opp.shape != faces.shape
+            or attrs.shape != (v_clip.shape[1], 3) or bins.dim() != 3
+            or bins.shape[0] != v_clip.shape[0]):
+        raise ValueError(
+            f"setup_slots: v_clip {tuple(v_clip.shape)}, faces "
+            f"{tuple(faces.shape)}, attrs {tuple(attrs.shape)}, opp "
+            f"{tuple(opp.shape)}, bins {tuple(bins.shape)}: want (C, V, 4), "
+            "(F, 3), (V, 3), (F, 3) and (C, T, cap)")
+    C, T, cap = bins.shape
+    rbb = torch.empty((C, T, cap, 32), dtype=torch.float32,
+                      device=v_clip.device)
+    rfb = torch.empty_like(rbb) if need_fwd else None
+    err = _cuda.library("setup_slots")(
+        v_clip.data_ptr(), faces.data_ptr(), attrs.data_ptr(),
+        opp.data_ptr(), bins.data_ptr(),
+        None if rfb is None else rfb.data_ptr(), rbb.data_ptr(), C, T, cap,
+        v_clip.shape[1], faces.shape[0], *bins.stride(),
+        int(bins.dtype == torch.int64), float(np.float32(height / 2.0)),
+        _cuda.stream(v_clip.device))
+    _cuda.check("setup_slots", err)
+    LAUNCHES["setup_slots"] += 1
+    return rfb, rbb
+
+
+def _gather_rows(rec, bins, fill):
+    """Whole 32-float record rows by bins: rec (C, F, 32), bins (C, T, cap)
+    with −1 for a dead slot, which gets the row ``fill``."""
+    C, F, _ = rec.shape
+    ext = torch.cat([rec, fill.expand(C, 1, 32)], dim=1)
+    ids = torch.where(bins >= 0, bins, F)
+    cam = torch.arange(C, device=rec.device)[:, None, None]
+    return ext[cam, ids]
+
+
+def setup_slots_plain(v_clip, faces, attrs, opp, bins, height, width,
+                      need_fwd=True):
+    """Plain PyTorch version of :func:`setup_slots`: the records built
+    face-major, as :func:`~largesteps_torch.render.pipeline.triangle_setup`
+    builds them, and whole rows gathered by ``bins``.  Dead slots get an
+    empty y-range in rfb (a zeroed row would read as y = 0) and zeros in
+    rbb."""
+    from .pipeline import triangle_setup
+    rec_fwd, rec_bwd = triangle_setup(v_clip, faces, attrs, opp, height,
+                                      width, need_fwd)
+    rbb = _gather_rows(rec_bwd, bins, rec_bwd.new_zeros(32))
+    if not need_fwd:
+        return None, rbb
+    dead = rec_fwd.new_zeros(32)
+    dead[12], dead[13] = 1e9, -1e9
+    return _gather_rows(rec_fwd, bins, dead), rbb

@@ -225,34 +225,22 @@ def setup_and_bin(v_clip, faces, attrs, opp, height, width, cap,
             torch.clamp(counts, max=cap).to(torch.int32))
 
 
-def _gather_rows(rec, bins, fill):
-    """Whole 32-float record rows by bins: rec (C, F, 32), bins (C, T, cap)
-    with −1 for a dead slot, which gets the row ``fill``."""
-    C, F, _ = rec.shape
-    ext = torch.cat([rec, fill.expand(C, 1, 32)], dim=1)
-    ids = torch.where(bins >= 0, bins, F)
-    cam = torch.arange(C, device=rec.device)[:, None, None]
-    return ext[cam, ids]
-
-
 def setup_from_bins(v_clip, faces, attrs, opp, bins, height, width,
                     need_fwd=True):
-    """Setup and record gather by precomputed bins (the large-F path).
+    """Setup and record gather by precomputed bins (the large-F path):
+    (rfb, rbb), each (C, T, cap, 32), of faces ``bins`` (C, T, cap) (−1 =
+    dead slot).  Dead slots get an empty y-range in rfb (a zeroed row would
+    read as y = 0) and zeros in rbb.  rfb is None with ``need_fwd=False``
+    (the backward's recompute).
 
-    The records are built face-major, as :func:`triangle_setup` builds
-    them, and whole rows are gathered by ``bins`` (C, T, cap) (−1 = dead
-    slot).  Dead slots get an empty y-range in rfb (a zeroed row would read
-    as y = 0) and zeros in rbb.  Returns (rfb, rbb), each (C, T, cap, 32);
-    rfb is None with ``need_fwd=False`` (the backward's recompute).
+    Every pipe on precomputed bins calls this one function.  On the card it
+    is one launch of :func:`kernels.setup_slots`, which computes each slot's
+    rows from its face and writes them once; CPU tensors take
+    :func:`kernels.setup_slots_plain`, which builds the records face-major,
+    as :func:`triangle_setup` does, and gathers whole rows by ``bins``.
     """
-    rec_fwd, rec_bwd = triangle_setup(v_clip, faces, attrs, opp, height,
-                                      width, need_fwd)
-    rbb = _gather_rows(rec_bwd, bins, rec_bwd.new_zeros(32))
-    if not need_fwd:
-        return None, rbb
-    dead = rec_fwd.new_zeros(32)
-    dead[12], dead[13] = 1e9, -1e9
-    return _gather_rows(rec_fwd, bins, dead), rbb
+    return kernels.setup_slots(v_clip, faces, attrs, opp, bins, height,
+                               width, need_fwd)
 
 
 def bin_triangles_host(v_ndc, faces, resolution, cap=None, margin=0.0,

@@ -10,6 +10,10 @@ and depths of ``raster_fwd_plain`` on those bins.  The bins are those of
   y0 − 1 of a tile or crossing its top or right border, find their owner on
   both sides (the bins test the bbox expanded by one pixel on both sides).
 * No face id occurs twice among a tile's live slots.
+
+Besides, ``setup_from_bins`` on CPU tensors takes the plain route (no
+launch of ``kernels.setup_slots``' kernel): each live slot holds its face's
+rows of ``triangle_setup``'s records, each dead slot the fill rows.
 """
 import numpy as np
 import pytest
@@ -23,7 +27,7 @@ from largesteps_torch.render.pipeline import (bin_triangles_device,
                                               bin_triangles_host,
                                               check_bin_overflow,
                                               setup_and_bin, setup_from_bins,
-                                              suggest_cap)
+                                              suggest_cap, triangle_setup)
 from largesteps_torch.render.renderer import Renderer
 
 RES = (256, 256)
@@ -112,3 +116,39 @@ def test_no_face_twice_in_a_tile(binned):
     assert sum(len(v) for v in sets.values()) > 1000
     for key, ids in sets.items():
         assert len(ids) == len(set(ids)), key
+
+
+def test_setup_from_bins_on_the_cpu_takes_the_plain_route():
+    """CPU tensors: ``LAUNCHES["setup_slots"]`` unchanged, each live slot
+    the rows of its face in ``triangle_setup``'s records, each dead slot the
+    fill rows (rfb zeros but an empty y-range, rbb zeros); with
+    ``need_fwd=False`` the same rbb and no rfb (icosphere-2, 2 views of
+    128²)."""
+    res = (128, 128)
+    scene = make_scene(source=("icosphere", 2), target=("gourd", 2),
+                       n_views=2, res=res[0])
+    f = scene["mesh-source"]["faces"]
+    faces = torch.as_tensor(f.astype(np.int64))
+    opp = torch.as_tensor(face_adjacency(f).astype(np.int64))
+    v_ndc = project(torch.as_tensor(scene["mesh-source"]["vertices"]),
+                    Renderer(scene, device="cpu").mvps)
+    attrs = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(v_ndc.shape[1], 3)).astype(np.float32))
+    b, _, _ = bin_triangles_host(v_ndc.numpy(), f, res, margin=2.0)
+    bins = torch.as_tensor(b).long()
+    before = K.LAUNCHES["setup_slots"]
+    rfb, rbb = setup_from_bins(v_ndc, faces, attrs, opp, bins, *res)
+    no_fwd, rbb_only = setup_from_bins(v_ndc, faces, attrs, opp, bins, *res,
+                                       need_fwd=False)
+    assert K.LAUNCHES["setup_slots"] == before
+    rec_fwd, rec_bwd = triangle_setup(v_ndc, faces, attrs, opp, *res)
+    live = bins >= 0
+    assert live.any() and (~live).any()
+    cam = torch.arange(bins.shape[0])[:, None, None].expand_as(bins)
+    assert torch.equal(rfb[live], rec_fwd[cam[live], bins[live]])
+    assert torch.equal(rbb[live], rec_bwd[cam[live], bins[live]])
+    fill = torch.zeros(32)
+    fill[12], fill[13] = 1e9, -1e9
+    assert torch.equal(rfb[~live], fill.expand(int((~live).sum()), 32))
+    assert not rbb[~live].any()
+    assert no_fwd is None and torch.equal(rbb_only, rbb)

@@ -50,6 +50,14 @@ cotangents from a numpy seed.
   bits, one launch a backward of a prebinned pipe given the face→slot
   inverse (one a camera in the camera-sequential pipe, none in the
   unbinned or an ablated one), and the inputs it refuses.
+* The prebinned pipe's forward setup kernel
+  (``render/kernels.py:setup_slots``): the bits of ``setup_slots_plain``
+  on the card (int32 views of rfb and rbb), with and without rfb, on int64
+  and int32 bins and a row shard's strided slice, over dead slots and
+  faces that are degenerate, behind the camera or not finite; at
+  nefertiti's shapes on the epoch's host bins; two launches the same bits;
+  one launch a forward of the batched pipe and one a camera, forward and
+  backward, of the camera-sequential pipe; the inputs it refuses.
 * The micro-benchmarks' kernels: ``onehot_scatter`` with P not a multiple
   of 4,096, ids out of range (−1, n_faces, far past it) and 18 and 32
   channels; at 1, 3, 18, 32 and 33 channels (scalar, v2 and v4
@@ -108,6 +116,7 @@ largest entry.
 """
 import gc
 import importlib
+import types
 
 import numpy as np
 import pytest
@@ -840,6 +849,190 @@ def test_gpu_chain_face_rows_rejects(bad):
     with pytest.raises(ValueError):
         K.chain_face_rows(dslot, dslot_aa, 3.0, rbb, fslots, up)
     assert K.LAUNCHES["chain_face_rows"] == before
+
+
+def _setup_case(dev, n_views=2, cap=700):
+    """Inputs of the forward setup on ``dev``: icosphere-4 in ``n_views``
+    views of 256² (16 tiles), with nine faces appended on new vertices: w of
+    1e-10, w of exactly 1e-9, w of 0, three equal corners (zero area),
+    collinear corners, all corners behind the camera (w < 0), one corner
+    behind, a NaN corner and an infinite one.  Seeded attributes and opp;
+    bins (C, 16, cap) int64 of random face ids, the appended faces in every
+    bin, each bin's live run of random length (one full, one empty) and −1
+    past it."""
+    scene = make_scene(source=("icosphere", 4), target=("gourd", 2),
+                       n_views=n_views, res=256)
+    f = scene["mesh-source"]["faces"]
+    v_ndc = project(torch.as_tensor(scene["mesh-source"]["vertices"]),
+                    Renderer(scene, device="cpu").mvps)
+    nan, inf = float("nan"), float("inf")
+    b, c = (0.3, 0.1, 0.5, 1.0), (0.1, 0.3, 0.5, 1.0)   # two plain corners
+    odd = [[(0.1, 0.1, 0.5, 1e-10), b, c],
+           [(0.1, 0.1, 0.5, 1e-9), b, c],
+           [(0.1, 0.1, 0.5, 0.0), b, c],
+           [(0.2, 0.2, 0.5, 1.0)] * 3,
+           [(0.1, 0.1, 0.5, 1.0), (0.2, 0.2, 0.5, 1.0), (0.3, 0.3, 0.5, 1.0)],
+           [(0.1, 0.1, -1.5, -1.0), (0.3, 0.1, -1.5, -2.0),
+            (0.1, 0.3, -1.5, -1.0)],
+           [(0.1, 0.1, 0.5, 1.0), (0.3, 0.1, -1.5, -0.5), c],
+           [(nan, 0.1, 0.5, 1.0), b, c],
+           [(0.1, 0.1, 0.5, 1.0), (0.3, inf, 0.5, 1.0), c]]
+    extra = torch.tensor(odd, dtype=torch.float32).reshape(-1, 4)
+    V, F, n_odd = v_ndc.shape[1], len(f), len(odd)
+    v_clip = torch.cat([v_ndc, extra.expand(n_views, -1, -1)], dim=1)
+    faces = np.concatenate([f, V + np.arange(3 * n_odd).reshape(-1, 3)])
+    rng = np.random.default_rng(21)
+    opp = rng.integers(-1, len(faces), size=faces.shape)
+    attrs = rng.normal(size=(V + 3 * n_odd, 3)).astype(np.float32)
+    T = 16
+    bins = np.full((n_views, T, cap), -1, np.int64)
+    for c in range(n_views):
+        for t in range(T):
+            n = [cap, 0][t] if t < 2 else int(rng.integers(n_odd, cap))
+            ids = rng.integers(0, F + n_odd, size=n)
+            ids[:min(n, n_odd)] = F + np.arange(min(n, n_odd))
+            bins[c, t, :n] = rng.permutation(ids)
+    up = lambda a: torch.as_tensor(a).to(dev)
+    return (v_clip.contiguous().to(dev), up(faces.astype(np.int64)),
+            up(attrs), up(opp.astype(np.int64)), up(bins))
+
+
+def _bits(t):
+    return None if t is None else t.view(torch.int32)
+
+
+def _same_bits(got, want):
+    return all((a is None and b is None)
+               or (a is not None and b is not None
+                   and torch.equal(_bits(a), _bits(b)))
+               for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bins_as", ["int64", "int32", "row_shard"])
+@pytest.mark.parametrize("need_fwd", [True, False], ids=["fwd", "bwd_only"])
+def test_gpu_setup_slots_is_the_plain_route(need_fwd, bins_as):
+    """The forward setup kernel gives the bits of ``setup_slots_plain`` on
+    the card (``_setup_case``: dead slots, faces with w ≤ 1e-9, zero and
+    collinear area, behind the camera, a NaN and an infinite corner), on
+    int64 bins, int32 bins and a row shard's strided ``local_bins`` slice
+    (the second of two shards' tile rows), with and without rfb; two
+    launches the same bits, one counted a call."""
+    dev = _card()
+    v_clip, faces, attrs, opp, bins = _setup_case(dev)
+    if bins_as == "row_shard":
+        pipe = RenderPipeline(faces.cpu().numpy(), opp.cpu().numpy(),
+                              (256, 256), cap=bins.shape[-1],
+                              prebinned=True,
+                              mesh=types.SimpleNamespace(sp=2, sp_index=1))
+        bins, _ = pipe.local_bins(bins, bins[..., 0])
+        assert not bins.is_contiguous()
+    got_bins = bins.int() if bins_as == "int32" else bins
+    args = (v_clip, faces, attrs, opp)
+    before = K.LAUNCHES["setup_slots"]
+    got = K.setup_slots(*args, got_bins, 256, 256, need_fwd)
+    assert K.LAUNCHES["setup_slots"] == before + 1
+    again = K.setup_slots(*args, got_bins, 256, 256, need_fwd)
+    assert K.LAUNCHES["setup_slots"] == before + 2
+    want = K.setup_slots_plain(*args, bins, 256, 256, need_fwd)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["setup_slots"] == before + 2
+    assert (got[0] is None) == (not need_fwd)
+    assert _same_bits(got, want) and _same_bits(got, again)
+    rbb = got[1]
+    assert rbb.shape == (*bins.shape, 32)
+    assert torch.isnan(rbb).any()                    # the NaN corner
+    assert (rbb[..., 22] == 0).any() and (rbb[..., 22] > 0).any()
+
+
+@pytest.mark.gpu
+def test_gpu_setup_slots_nefertiti():
+    """The kernel at nefertiti's shapes (13 views of 256², 327,680 faces,
+    the epoch's host bins at the driver's 4 px margin and fitted cap) gives
+    the bits of ``setup_slots_plain`` on the card."""
+    from largesteps_torch.profiling import large_f_scene
+    dev = _card()
+    scene = large_f_scene()
+    f = scene["mesh-source"]["faces"]
+    r = Renderer(scene, device=dev)
+    vs = torch.as_tensor(scene["mesh-source"]["vertices"], device=dev)
+    v_clip = project(vs, r.mvps)
+    bins, _, _ = bin_triangles_host(v_clip.cpu().numpy(), f, r.res,
+                                    margin=4.0)
+    bins = torch.as_tensor(bins).long().to(dev)
+    faces = torch.as_tensor(f.astype(np.int64), device=dev)
+    opp = torch.as_tensor(face_adjacency(f).astype(np.int64), device=dev)
+    attrs = torch.rand((vs.shape[0], 3), device=dev)
+    assert bins.shape[:2] == (13, 16) and bins.shape[2] > 10_000
+    got = K.setup_slots(v_clip, faces, attrs, opp, bins, *r.res)
+    want = K.setup_slots_plain(v_clip, faces, attrs, opp, bins, *r.res)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert int((bins >= 0).sum()) > 1_000_000
+
+
+@pytest.mark.gpu
+def test_gpu_setup_slots_launches_once_a_forward():
+    """A forward of the batched prebinned pipe launches the setup kernel
+    once and its backward never; the camera-sequential pipe launches it
+    once a camera in the forward and once a camera in the backward's
+    recompute."""
+    dev = _card()
+    scene, f, v_ndc, cap = _large_f_case(n_views=2, level=4)
+    faces = torch.as_tensor(f.astype(np.int64))
+    binned = [t.to(dev) for t in bin_triangles_device(
+        v_ndc, faces, (256, 256), cap, margin=4.0)[:3]]
+    attrs = torch.rand((v_ndc.shape[1], 3), device=dev)
+    bg = Renderer(scene, device="cpu").bgs.to(dev)
+    adj, K_ = face_adjacency(f), int(binned[2].shape[-1])
+    pipes = {"batched": (RenderPipeline(f, adj, (256, 256), boost=3.0,
+                                        cap=cap, prebinned=True, slots_k=K_),
+                         1, 0),
+             "camera_sequential": (RenderPipelineBig(
+                 f, adj, (256, 256), boost=3.0, cap=cap, slots_k=K_), 2, 2)}
+    for name, (pipe, fwd, bwd) in pipes.items():
+        vc = v_ndc.to(dev).clone().requires_grad_(True)
+        before = K.LAUNCHES["setup_slots"]
+        img = pipe(vc, attrs, bg, *binned)
+        assert K.LAUNCHES["setup_slots"] == before + fwd, name
+        img.sum().backward()
+        torch.cuda.synchronize()
+        assert K.LAUNCHES["setup_slots"] == before + fwd + bwd, name
+        assert torch.isfinite(vc.grad).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["v_clip_f64", "v_clip_strided",
+                                 "v_clip_shape", "faces_int32", "opp_shape",
+                                 "attrs_shape", "bins_float", "bins_cameras",
+                                 "mixed_devices"])
+def test_gpu_setup_slots_rejects(bad):
+    """The wrapper raises on a wrong dtype, a strided v_clip, shapes that
+    do not fit together and tensors on two devices, and launches nothing."""
+    dev = _card()
+    v_clip, faces, attrs, opp, bins = _setup_case(dev, cap=64)
+    if bad == "v_clip_f64":
+        v_clip = v_clip.double()
+    elif bad == "v_clip_strided":
+        v_clip = torch.cat([v_clip, v_clip], dim=-1)[..., :4]
+    elif bad == "v_clip_shape":
+        v_clip = v_clip[..., :3].contiguous()
+    elif bad == "faces_int32":
+        faces = faces.int()
+    elif bad == "opp_shape":
+        opp = opp[:-1]
+    elif bad == "attrs_shape":
+        attrs = attrs[:-1]
+    elif bad == "bins_float":
+        bins = bins.float()
+    elif bad == "bins_cameras":
+        bins = bins[:1]
+    else:
+        attrs = attrs.cpu()
+    before = K.LAUNCHES["setup_slots"]
+    with pytest.raises(ValueError):
+        K.setup_slots(v_clip, faces, attrs, opp, bins, 256, 256)
+    assert K.LAUNCHES["setup_slots"] == before
 
 
 @pytest.mark.gpu
