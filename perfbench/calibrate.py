@@ -38,8 +38,9 @@ def norms(g):
 def witness(keep, device):
     """The last step's image loss and gradients by the program's renderer
     on bins made for that step's vertices (traced bins, the cap grown to
-    fit), and the program's own solve."""
+    fit), and the program's own solve (none on a coordinate leg)."""
     from largesteps_torch.core.solvers import solve
+    from largesteps_torch.core.sparse import coo_matvec
     from largesteps_torch.driver.optimize_shape import (_prepare,
                                                         default_params)
     from largesteps_torch.ops.normals import (compute_face_normals,
@@ -50,16 +51,21 @@ def witness(keep, device):
     th = keep["theta_last"]
     u = th["u"].clone().requires_grad_(True)
     tr = th["tr"].clone().requires_grad_(True)
-    v = solve(st.solver, u)
+    v = solve(st.solver, u) if p["smooth"] else u
     fu = torch.as_tensor(st.f_unique.astype(np.int64), device=device)
     dup = torch.as_tensor(st.duplicate_idx.astype(np.int64), device=device)
     n = compute_vertex_normals(v, fu, compute_face_normals(v, fu))[dup]
     vr = tr + v[dup]
     occ = rd.check_overflow(vr.detach(), st.topology)
     imgs = rd.render(vr, n, st.topology)
-    loss = (imgs - runp.ref_imgs).abs().mean()
-    gu, gt = torch.autograd.grad(loss, (u, tr))
-    return {"loss": float(loss.detach()), "occupancy": int(occ),
+    im = (imgs - runp.ref_imgs).abs().mean()
+    total = im
+    if p["reg"]:
+        Lv = coo_matvec(st.L, v)
+        total = im + p["reg"] * (Lv.square().mean() if p["bilaplacian"]
+                                 else (v * Lv).mean())
+    gu, gt = torch.autograd.grad(total, (u, tr))
+    return {"loss": float(im.detach()), "occupancy": int(occ),
             "cap": rd.bin_cap, "grad": {"tr": gt, "u": gu}}
 
 

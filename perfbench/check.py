@@ -14,7 +14,9 @@ numbers, each with a limit of the cell's (``workloads/<cell>.json``,
 * ``loss_first``: the relative gap of the first step's image loss;
 * ``grad_first``: the first step's gradient with respect to the solved
   vertices, ∂L/∂v = M ∂L/∂u worked out from the gradient the optimizer
-  got by the reference's M in float64, the typical vertex's gap
+  got by the reference's M in float64 (on a coordinate leg, whose
+  parameters are the vertices, that gradient itself), the typical vertex's
+  gap
   (:func:`reference.row_gap`: the median over vertices of ‖g − g_ref‖
   over the median of ‖g_ref‖);
 * ``update_first``: the first update's worst leaf (|‖Δ‖ − ‖Δ_ref‖ over
@@ -79,7 +81,10 @@ def numbers(out: dict, r: dict, ref: Reference) -> dict:
     opt = Optimizer(ref.p.get("optimizer", "AdamUniform"),
                     float(ref.p["step_size"]))
     want = opt.step(out["theta0"], out["grad0"])
-    gv = lambda g: ref.M.mv(g["u"].double())     # ∂L/∂v = M ∂L/∂u
+    if ref.smooth:                               # ∂L/∂v = M ∂L/∂u
+        gv = lambda g: ref.M.mv(g["u"].double())
+    else:                                        # u is v
+        gv = lambda g: g["u"]
     res = {"loss_first": _rel(out["losses"][0], r["losses"][0]),
            "grad_first": row_gap(gv(out["grad0"]), gv(r["grad0"])),
            "update_first": leaf_gap(

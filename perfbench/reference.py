@@ -1,12 +1,14 @@
 """The plain reference of a fitting step, in PyTorch and NumPy.
 
 It imports nothing of the program.  From the scene alone it works out what
-the program computes in a step of ``optimize_shape`` (``smooth``):
+the program computes in a step of ``optimize_shape``, on a ``smooth`` leg
+(the parameters are u = M v) or on a coordinate leg (``smooth`` off: the
+parameters are the welded vertices v themselves):
 
-* the mesh welded (``np.unique`` of the rows), the uniform Laplacian and
-  ``M = I + λL`` or ``(1 − α)I + αL``, in float64;
-* the solve ``v = M⁻¹u`` and its adjoint by conjugate gradients in
-  float64 (:class:`Solve`);
+* the mesh welded (``np.unique`` of the rows), the uniform Laplacian and,
+  on a ``smooth`` leg, ``M = I + λL`` or ``(1 − α)I + αL``, in float64;
+* on a ``smooth`` leg the solve ``v = M⁻¹u`` and its adjoint by conjugate
+  gradients in float64 (:class:`Solve`); on a coordinate leg none;
 * angle-weighted vertex normals;
 * the render: projection, a z-buffer over each face's pixel box (the
   nearest face wins, the lowest id on a tie), perspective-correct
@@ -484,14 +486,14 @@ def _pairs(ids, zb, clip, faces, opp, res, boost):
 
 class Reference:
     """The reference of one configuration on one scene.  ``params`` are the
-    driver parameters of the leg (``smooth`` legs only)."""
+    driver parameters of the leg; with ``smooth`` off the parameters ``u``
+    are the welded vertices and ``M`` is None."""
 
     def __init__(self, scene, params, device, lowp=False, fault=None):
         if fault not in FAULTS:
             raise ValueError(f"fault {fault!r}: one of {FAULTS}")
         self.fault = fault
-        if not params.get("smooth", True):
-            raise ValueError("the reference follows smooth legs only")
+        self.smooth = bool(params.get("smooth", True))
         self.dev = torch.device(device)
         self.p = params
         self.lowp = lowp
@@ -501,14 +503,16 @@ class Reference:
         self.v_unique, f_unique, self.dup = weld(v_src, f_src)
         V = len(self.v_unique)
         r, c, vals = laplacian(V, f_unique)
-        lam, alpha = params.get("lambda", 1.0), params.get("alpha")
-        d = np.arange(V)
-        if alpha is None:
-            mv = np.concatenate([lam * vals, np.ones(V)])
-        else:
-            mv = np.concatenate([alpha * vals, np.full(V, 1.0 - alpha)])
-        self.M = SPD(np.concatenate([r, d]), np.concatenate([c, d]), mv, V,
-                     dev)
+        self.M = None
+        if self.smooth:
+            lam, alpha = params.get("lambda", 1.0), params.get("alpha")
+            d = np.arange(V)
+            if alpha is None:
+                mv = np.concatenate([lam * vals, np.ones(V)])
+            else:
+                mv = np.concatenate([alpha * vals, np.full(V, 1.0 - alpha)])
+            self.M = SPD(np.concatenate([r, d]), np.concatenate([c, d]), mv,
+                         V, dev)
         self.L = SPD(r, c, vals, V, dev)
         self.f_unique = torch.as_tensor(f_unique, device=dev)
         self.dup_t = torch.as_tensor(self.dup, device=dev)
@@ -532,10 +536,11 @@ class Reference:
                                             ft.cpu().numpy()), device=dev))
 
     def u0(self) -> torch.Tensor:
-        """u of the source mesh, M v (float64, rounded to float32)."""
+        """u of the source mesh: M v (float64, rounded to float32), or on a
+        coordinate leg the welded vertices in float32."""
         v = torch.as_tensor(self.v_unique, dtype=torch.float64,
                             device=self.dev)
-        return self.M.mv(v).float()
+        return self.M.mv(v).float() if self.smooth else v.float()
 
     def render(self, v, n, faces, opp, lowp=None):
         """Images (C, H, W, 4) of vertices v (V, 3) with normals n."""
@@ -576,8 +581,10 @@ class Reference:
         return _lp((col + delta).reshape(C, H, W, 4), lowp)
 
     def solve(self, u, lowp=None):
+        """v of parameters u: M⁻¹u, or u itself on a coordinate leg; either
+        is a stage's hand-off, rounded under ``lowp``."""
         lowp = self.lowp if lowp is None else lowp
-        return _lp(Solve.apply(u, self.M), lowp)
+        return _lp(Solve.apply(u, self.M) if self.smooth else u, lowp)
 
     def loss(self, u, tr):
         """(image loss, total loss, logged bilaplacian) at parameters u
@@ -691,7 +698,7 @@ def count_clip(clip, faces, res) -> dict:
 @torch.no_grad()
 def count_work(ref: Reference, u, tr) -> dict:
     """:func:`count_clip` of the vertices of parameters (u, tr)."""
-    v = Solve.apply(u, ref.M)[ref.dup_t] + tr
+    v = ref.solve(u, lowp=False)[ref.dup_t] + tr
     return count_clip(project(v, ref.mvps), ref.faces, ref.res)
 
 

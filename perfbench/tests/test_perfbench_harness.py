@@ -3,9 +3,10 @@
     python -m pytest perfbench/tests -q
 
 The cells themselves run only on the card (``python3 -m perfbench.run``);
-here a test-only cell (``tests/data``: icosphere-2 fitted to gourd-2, two
-views at 128²) drives a whole run on the CPU, where the program's kernel
-wrappers take their plain PyTorch versions.
+here test-only cells (``tests/data``: icosphere-2 fitted to gourd-2, two
+views at 128²; ``tiny-ours`` solves, ``tiny-reg`` optimizes the coordinates
+under Adam with the bilaplacian term) drive whole runs on the CPU, where
+the program's kernel wrappers take their plain PyTorch versions.
 """
 import ast
 import io
@@ -163,20 +164,32 @@ def test_roofline_counts_a_hand_sized_mesh():
         max(nbytes / 3.35e12, flops / 67e12))
 
 
-def _rehearse(monkeypatch=None, plant=None, trace=0, bench_file=None):
+def _rehearse(monkeypatch=None, plant=None, trace=0, bench_file=None,
+              workload="tiny-ours"):
     out, err = io.StringIO(), io.StringIO()
     kw = dict(roots=ROOTS, device="cpu", require_card=False, plant=plant)
     if bench_file:
         kw["bench_file"] = bench_file
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        code = run.main(["--workload", "tiny-ours", "--seed", "3000000019",
+        code = run.main(["--workload", workload, "--seed", "3000000019",
                          "--seconds", "1", "--trace", str(trace)], **kw)
     return code, json.loads(out.getvalue().strip().splitlines()[-1]), \
         err.getvalue()
 
 
-def test_a_cpu_rehearsal_prints_the_contracts_last_line():
-    code, line, err = _rehearse()
+# the smooth leg (u = M v, AdamUniform) and the coordinate leg (Adam on v)
+CELLS = ["tiny-ours", "tiny-reg"]
+
+
+def _tiny(workload, seed=1234):
+    wl, cfg, tr, params = run.cell(workload, ROOTS)
+    scn = scene.scene_for(cfg["scene"], tr["views"], seed)
+    return wl, scn, params
+
+
+@pytest.mark.parametrize("workload", CELLS)
+def test_a_cpu_rehearsal_prints_the_contracts_last_line(workload):
+    code, line, err = _rehearse(workload=workload)
     assert code == 0
     assert list(line)[:5] == ["correct", "attempted", "failed", "metrics",
                               "device"]
@@ -207,9 +220,9 @@ def test_a_new_metric_is_a_new_file(tmp_path):
         "value": float(line["attempted"]), "unit": "steps"}}
 
 
-def test_the_control_fails_the_comparison():
-    wl, cfg, tr, params = run.cell("tiny-ours", ROOTS)
-    scn = scene.scene_for(cfg["scene"], tr["views"], 1234)
+@pytest.mark.parametrize("workload", CELLS)
+def test_the_control_fails_the_comparison(workload):
+    wl, scn, params = _tiny(workload)
     ref = reference.Reference(scn, params, "cpu")
     theta = {"u": ref.u0() * 1.001, "tr": torch.full((1, 3), 1e-3)}
     r = check.side_outputs(ref, theta)
@@ -224,6 +237,7 @@ def test_the_control_fails_the_comparison():
 def _freeze_steps():
     from largesteps_torch.core import optimize
     optimize.AdamUniform.step = lambda self, closure=None: None
+    optimize.Adam.step = lambda self, closure=None: None
 
 
 def _half_views():
@@ -251,20 +265,65 @@ def _roll_row():
     renderer.Renderer.render = rolled
 
 
-@pytest.mark.parametrize("fault", [_freeze_steps, _half_views, _roll_row])
-def test_a_broken_timed_path_reads_not_correct(fault, monkeypatch):
+def _restore_after(monkeypatch):
+    """Puts back, after the test, what a planted fault replaces."""
     from largesteps_torch.core import optimize
     from largesteps_torch.render import renderer
-    monkeypatch.setattr(optimize.AdamUniform, "step",
-                        optimize.AdamUniform.step)
+    for cls in (optimize.AdamUniform, optimize.Adam):
+        monkeypatch.setattr(cls, "step", cls.step)
     monkeypatch.setattr(renderer.Renderer, "__init__",
                         renderer.Renderer.__init__)
     monkeypatch.setattr(renderer.Renderer, "render",
                         renderer.Renderer.render)
-    code, line, err = _rehearse(plant=fault)
+
+
+@pytest.mark.parametrize("workload", CELLS)
+@pytest.mark.parametrize("fault", [_freeze_steps, _half_views, _roll_row])
+def test_a_broken_timed_path_reads_not_correct(fault, workload, monkeypatch):
+    _restore_after(monkeypatch)
+    code, line, err = _rehearse(plant=fault, workload=workload)
     assert code == 0
     assert line["correct"] is False, line["checks"]
     assert err.strip().splitlines()[-1] == "correct: False"
+
+
+def test_count_work_of_the_coordinate_leg_renders_u_plus_tr():
+    _, scn, params = _tiny("tiny-reg")
+    ref = reference.Reference(scn, params, "cpu")
+    # no M: the parameters are the welded source vertices themselves
+    assert ref.M is None
+    assert torch.equal(ref.u0(), torch.as_tensor(ref.v_unique))
+    u, tr = ref.u0() * 1.01, torch.full((1, 3), 2e-3)
+    want = reference.count_clip(
+        reference.project(u[ref.dup_t] + tr, ref.mvps), ref.faces, ref.res)
+    # the same float32 sums in the same order: equal, not close
+    assert reference.count_work(ref, u, tr) == want
+
+
+def test_a_smooth_leg_keeps_its_solve_in_numbers_and_count_work():
+    _, scn, params = _tiny("tiny-ours")
+    ref = reference.Reference(scn, params, "cpu")
+    u, tr = ref.u0() * 1.001, torch.full((1, 3), 1e-3)
+    # the work of M⁻¹u, as counted before coordinate legs were taught
+    v = reference.Solve.apply(u, ref.M)[ref.dup_t] + tr
+    want = reference.count_clip(reference.project(v, ref.mvps), ref.faces,
+                                ref.res)
+    assert reference.count_work(ref, u, tr) == want
+    r = check.side_outputs(ref, {"u": u, "tr": tr})
+    o = {**r, **{k: {n: g + 1e-2 * g.roll(1, 0) for n, g in r[k].items()}
+                 for k in ("grad0", "grad_last")}}
+    nums = check.numbers(o, r, ref)
+    # the gradients in v-space as M ∂L/∂u: the same float64 products, so
+    # the same bits
+    gv = lambda g: ref.M.mv(g["u"].double())
+    assert nums["grad_first"] == reference.row_gap(gv(o["grad0"]),
+                                                   gv(r["grad0"]))
+    assert nums["grad_last"] == reference.row_gap(gv(o["grad_last"]),
+                                                  gv(r["grad_last"]))
+    # and not the u-space gap (0.01 here): M spreads the shifted rows
+    # over their neighbours, some 0.38 in v-space
+    assert nums["grad_first"] > 10 * reference.row_gap(o["grad0"]["u"],
+                                                       r["grad0"]["u"])
 
 
 def test_no_card_no_result(monkeypatch):
